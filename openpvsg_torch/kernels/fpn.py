@@ -9,7 +9,14 @@ Replaces the Pallas kernel ``fused_fpn_stride4``
 with GroupNorm over ``num_groups`` groups, eps 1e-6, and GN1 on the lateral
 alone, before the add. Three launches, one per product (``lateral_stats``,
 ``conv3x3_stats``, ``mask_proj``); the tiny (B, C) sums -> scale/bias fold
-between them (``group_affine``) is torch.
+between them (``group_affine``) is torch. The kernels write GroupNorm sums as
+per-CTA partials, each summed in a fixed order, and the wrappers add them up
+in a fixed order, so the chain gives the same bits on every call.
+
+The route follows the activation dtype: float32 runs a SIMT GEMM (the parity
+path), bfloat16 the tensor-core kernels, which take channel counts up to
+``TC_MAX_CHANNELS``. Every channel count is a multiple of 8 and every tensor
+16-byte aligned.
 
 Every wrapper takes its plain version for CPU tensors and only for them: a
 CUDA tensor launches the kernel or raises. ``fpn_stride4`` on CPU tensors runs
@@ -33,6 +40,7 @@ from openpvsg_torch.kernels import build
 from openpvsg_torch.ops.resize import resize_bilinear
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TC_MAX_CHANNELS = 256  # widest K, C or N of the bf16 kernels (csrc/fpn.cu kMaxC)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -40,11 +48,13 @@ _I = ctypes.c_int
 def _lib():
     lib = build.load("fpn")
     if not getattr(lib, "_bound", False):
-        lib.fpn_lateral.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.fpn_conv3x3.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        lib.fpn_lateral.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.fpn_conv3x3.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _P]
         lib.fpn_mask.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        for fn in (lib.fpn_lateral, lib.fpn_conv3x3, lib.fpn_mask):
+        lib.fpn_stats_tiles.argtypes = [_I, _I, _I, _I, _I]
+        for fn in (lib.fpn_lateral, lib.fpn_conv3x3, lib.fpn_mask,
+                   lib.fpn_stats_tiles):
             fn.restype = _I
         lib._bound = True
     return lib
@@ -59,6 +69,17 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _check_channels(what: str, dt: torch.dtype, **dims: int):
+    for name, n in dims.items():
+        if n % 8:
+            raise ValueError(f"{what}: {name} = {n} must be a multiple of 8")
+        if dt == torch.bfloat16 and n > TC_MAX_CHANNELS:
+            raise ValueError(f"{what}: {name} = {n}; the bfloat16 kernel takes "
+                             f"at most {TC_MAX_CHANNELS} channels")
 
 
 def _raise_on(rc: int, what: str):
@@ -79,6 +100,16 @@ def _act_dtype(x: torch.Tensor) -> torch.dtype:
 def _channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W, C) float32 -> per-(b, c) sum and sum of squares."""
     return x.sum(dim=(1, 2)), (x * x).sum(dim=(1, 2))
+
+
+def _partials(dt: torch.dtype, kernel: int, B: int, H: int, W: int, N: int,
+              device: torch.device) -> torch.Tensor:
+    """The (2, B, N, tiles) float32 buffer where a stats launch (kernel 0
+    lateral, 1 conv3x3) writes each CTA's partial sums ([0]) and sums of
+    squares ([1]); ``.sum(-1)`` adds them up in a fixed order."""
+    tiles = _lib().fpn_stats_tiles(_DTYPE_CODE[dt], kernel, B, H, W)
+    _raise_on(max(0, -tiles), "fpn_stats_tiles")
+    return torch.empty((2, B, N, tiles), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -106,14 +137,15 @@ def lateral_stats(f0: torch.Tensor, w_lat: torch.Tensor, b_lat: torch.Tensor):
     _check("f0", f0, (B, H, W, Cin), dt, dev)
     _check("w_lat", w_lat, (Cin, C), dt, dev)
     _check("b_lat", b_lat, (C,), torch.float32, dev)
+    _check_channels("lateral_stats", dt, Cin=Cin, C=C)
     out = torch.empty((B, H, W, C), dtype=dt, device=dev)
-    s = torch.zeros((B, C), dtype=torch.float32, device=dev)
-    q = torch.zeros((B, C), dtype=torch.float32, device=dev)
+    part = _partials(dt, 0, B, H, W, C, dev)
     rc = _lib().fpn_lateral(_DTYPE_CODE[dt], f0.data_ptr(), w_lat.data_ptr(),
-                            b_lat.data_ptr(), out.data_ptr(), s.data_ptr(),
-                            q.data_ptr(), B, H * W, Cin, C, _stream(dev))
+                            b_lat.data_ptr(), out.data_ptr(), part.data_ptr(),
+                            B, H * W, Cin, C, _stream(dev))
     _raise_on(rc, "fpn_lateral")
     lateral_stats.launches += 1
+    s, q = part.sum(dim=-1)
     return out, s, q
 
 
@@ -147,23 +179,22 @@ def conv3x3_stats(l_raw, s8, sc1, bi1, w_out, b_out):
     H8, W8 = s8.shape[1:3]
     N = w_out.shape[-1]
     dev = l_raw.device
-    if C % 8:
-        raise ValueError(f"conv3x3_stats: channels {C} must be a multiple of 8")
     _check("l_raw", l_raw, (B, H, W, C), dt, dev)
     _check("s8", s8, (B, H8, W8, C), dt, dev)
     _check("sc1", sc1, (B, C), torch.float32, dev)
     _check("bi1", bi1, (B, C), torch.float32, dev)
     _check("w_out", w_out, (3, 3, C, N), dt, dev)
     _check("b_out", b_out, (N,), torch.float32, dev)
+    _check_channels("conv3x3_stats", dt, C=C, N=N)
     out = torch.empty((B, H, W, N), dtype=dt, device=dev)
-    s = torch.zeros((B, N), dtype=torch.float32, device=dev)
-    q = torch.zeros((B, N), dtype=torch.float32, device=dev)
+    part = _partials(dt, 1, B, H, W, N, dev)
     rc = _lib().fpn_conv3x3(
         _DTYPE_CODE[dt], l_raw.data_ptr(), s8.data_ptr(), sc1.data_ptr(),
         bi1.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        s.data_ptr(), q.data_ptr(), B, H, W, H8, W8, C, N, _stream(dev))
+        part.data_ptr(), B, H, W, H8, W8, C, N, _stream(dev))
     _raise_on(rc, "fpn_conv3x3")
     conv3x3_stats.launches += 1
+    s, q = part.sum(dim=-1)
     return out, s, q
 
 
@@ -196,6 +227,7 @@ def mask_proj(x2, sc2, bi2, w_mask, b_mask):
     _check("bi2", bi2, (B, C), torch.float32, dev)
     _check("w_mask", w_mask, (C, Cout), dt, dev)
     _check("b_mask", b_mask, (Cout,), torch.float32, dev)
+    _check_channels("mask_proj", dt, C=C, Cout=Cout)
     out = torch.empty((B, H, W, Cout), dtype=dt, device=dev)
     rc = _lib().fpn_mask(_DTYPE_CODE[dt], x2.data_ptr(), sc2.data_ptr(),
                          bi2.data_ptr(), w_mask.data_ptr(), b_mask.data_ptr(),

@@ -10,12 +10,19 @@ sum is the device's busy time) and the idle share, the device time by kernel
 family, and the top kernels. Run from the root of the repository:
 
     python3 profile_torch.py [--seed 0]
+
+With ``--ab OTHER`` it instead compares the unprofiled stage-2 frames/s of
+this checkout and another checkout of the repository (for example the parent
+commit, unpacked with ``git archive``) on the same card: each checkout runs
+stage 2 ``--runs`` times in a process of its own, in the order other, this,
+this, other, and one JSON line gives every run and each side's median.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -25,7 +32,7 @@ N_FRAMES = 16  # as chip_smoke.py's stage 2
 TOP = 15
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
-    ("fpn_gemm", "B1 fpn (port kernel)"),
+    ("fpn_", "B1 fpn (port kernel)"),
     ("fusion_maps", "B2 fusion (port kernel)"),
     ("conv", "convolution (cuDNN)"),
     ("xmma", "convolution (cuDNN)"),
@@ -43,6 +50,57 @@ FAMILIES = (
 )
 
 
+# one checkout's stage-2 runs, in a process of its own; uses only what both
+# sides of a comparison have (chip_smoke's config and frames,
+# run_query_tube_vps)
+_AB_CHILD = """
+import json, os, sys, tempfile, time
+tree, seed, runs, n = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+sys.path.insert(0, tree)
+import numpy as np, torch
+from chip_smoke import stage2_config, synthetic_frames
+from openpvsg_torch.infer.segmenter import SegmenterInference
+from openpvsg_torch.infer.stages import run_query_tube_vps
+from openpvsg_torch.kernels import build
+from openpvsg_torch.weights import random_state_dict
+build.build()
+cfg = stage2_config()
+seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+frames = list(synthetic_frames(np, n, 360, 480, seed))
+fps = []
+with tempfile.TemporaryDirectory() as tmp:
+    run_query_tube_vps(seg, frames[:4], os.path.join(tmp, "warm"), window=2)
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_query_tube_vps(seg, frames, os.path.join(tmp, str(i)), window=2)
+        torch.cuda.synchronize()
+        fps.append(n / (time.perf_counter() - t0))
+print(json.dumps({"frames_per_s": fps}))
+"""
+
+
+def compare(other: str, seed: int, runs: int, card: str) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    fps = {"other": [], "this": []}
+    for side, tree in (("other", other), ("this", here), ("this", here),
+                       ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, "-c", _AB_CHILD, tree, str(seed), str(runs),
+             str(N_FRAMES)], cwd=tree, capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return 1
+        fps[side] += json.loads(proc.stdout.strip().splitlines()[-1])["frames_per_s"]
+    print(json.dumps({"card": card, "frames": N_FRAMES, "other": other,
+                      "frames_per_s": fps,
+                      "median": {k: statistics.median(v) for k, v in fps.items()}}),
+          flush=True)
+    return 0
+
+
 def family(name: str) -> str:
     low = name.lower()
     for key, fam in FAMILIES:
@@ -54,6 +112,10 @@ def family(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="OTHER",
+                    help="compare stage-2 frames/s with another checkout")
+    ap.add_argument("--runs", type=int, default=3,
+                    help="stage-2 runs per process with --ab")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -73,6 +135,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card.splitlines()[0], flush=True)
+    if args.ab:
+        return compare(args.ab, args.seed, args.runs, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

@@ -54,9 +54,12 @@ def _fpn_case(B, H, W, Cin, C, Cout, dt, dev, seed=0):
 
 
 # (B, H, W, Cin, C, Cout, groups): ragged pixel tiles (H*W not a multiple of
-# 128), output widths below one 128-wide tile, and the main-path width
+# 128 or 64; H and W not multiples of the bf16 conv's 24x8 tile, H*W not
+# one of its 192 pixels), channel counts that are multiples of 8 but not of
+# 16 or 64, output widths below one tile, and the main-path width (B = 2)
 FPN_CASES = [(1, 16, 24, 32, 32, 16, 4), (2, 18, 30, 96, 64, 48, 8),
-             (2, 32, 40, 136, 256, 200, 32), (1, 96, 120, 256, 256, 256, 32)]
+             (2, 32, 40, 136, 256, 200, 32), (1, 96, 120, 256, 256, 256, 32),
+             (2, 20, 36, 64, 64, 64, 8), (2, 96, 120, 256, 256, 256, 32)]
 
 
 @pytest.mark.parametrize("case", FPN_CASES)
@@ -91,6 +94,16 @@ def test_fpn_launches_match_plain(dev, case, dt):
     assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_fpn_chain_is_deterministic(dev, dt):
+    """GroupNorm sums are per-tile partials summed in a fixed order: two
+    calls give the same bits."""
+    f0, s8, p = _fpn_case(2, 96, 120, 256, 256, 256, dt, dev, seed=1)
+    first = fpn.fpn_stride4(f0, s8, p)
+    for _ in range(2):
+        assert torch.equal(fpn.fpn_stride4(f0, s8, p), first)
+
+
 def test_fpn_wrappers_check_their_arguments(dev):
     f0, s8, p = _fpn_case(1, 16, 24, 32, 32, 16, torch.float32, dev)
     w = p["w_lat"].contiguous()
@@ -104,6 +117,33 @@ def test_fpn_wrappers_check_their_arguments(dev):
         fpn.lateral_stats(f0, w[:, :8].contiguous(), p["b_lat"])
     with pytest.raises(ValueError, match="on cpu"):
         fpn.lateral_stats(f0, w.cpu(), p["b_lat"])
+    with pytest.raises(ValueError, match="aligned"):
+        # contiguous, but 8 bytes past an aligned address
+        fpn.lateral_stats(f0.flatten()[2:2 + 16 * 23 * 32].view(1, 16, 23, 32), w,
+                          p["b_lat"])
+    # channel counts: multiples of 8 in both routes; at most 256 in bf16
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fpn.lateral_stats(f0[..., :12].contiguous(), w[:12].contiguous(), p["b_lat"])
+    bf = torch.bfloat16
+    wide = torch.zeros((1, 4, 4, 264), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="at most 256"):
+        fpn.lateral_stats(wide, torch.zeros((264, 32), dtype=bf, device=dev),
+                          p["b_lat"])
+    with pytest.raises(ValueError, match="at most 256"):
+        fpn.mask_proj(wide, torch.zeros((1, 264), device=dev),
+                      torch.zeros((1, 264), device=dev),
+                      torch.zeros((264, 16), dtype=bf, device=dev),
+                      torch.zeros(16, device=dev))
+    with pytest.raises(ValueError, match="at most 256"):
+        fpn.conv3x3_stats(wide, torch.zeros((1, 2, 2, 264), dtype=bf, device=dev),
+                          torch.zeros((1, 264), device=dev),
+                          torch.zeros((1, 264), device=dev),
+                          torch.zeros((3, 3, 264, 264), dtype=bf, device=dev),
+                          torch.zeros(264, device=dev))
+    # the float32 route takes them
+    out = fpn.lateral_stats(wide.float(), torch.zeros((264, 32), device=dev),
+                            p["b_lat"])[0]
+    assert out.shape == (1, 4, 4, 32)
 
 
 @pytest.mark.parametrize("N,Q,h,w,ori", [(1, 1, 5, 7, (20, 28)),
