@@ -9,16 +9,23 @@ Phases, each printing one JSON line:
 
 1. card    — ``nvidia-smi`` name and power limit (also printed raw); no GPU
              means exit 2 with no result.
-2. build   — nvcc builds of every kernel source (sm_90a), all at once.
+2. build   — nvcc builds of every kernel source (sm_90a), all at once;
+             ptxas registers and spills of each kernel entry.
 3. kernels vs plain at main-path width — the three FPN launches and the FPN
              chain (B=2, 96x120, C=256, G=32) in float32 (TF32 off) and
              bfloat16, and the fusion pass (N=2, Q=100, 96x120 -> 384x480,
-             ori 360x480, ~30% of queries dropped); max-abs errors, mismatch
-             counts, device times per call (``time_ms``: calls queued back
-             to back) and per-call times with the host's launch time
-             (``call_ms``), achieved TFLOP/s and the share of the bound;
-             any tolerance exceeded fails, and so does a chain whose two
-             calls differ in any bit.
+             ori 360x480) on two inputs: the smoke input (~30% of queries
+             dropped) and a no-skip input (every query kept at one score);
+             max-abs errors, mismatch counts, device times per call
+             (``time_ms``: calls queued back to back) and per-call times with
+             the host's launch time (``call_ms``), achieved TFLOP/s and the
+             share of the bound; for the fusion pass the shares of pairs
+             whose exact sigmoid the function needs (two exact rules, plain
+             side) and that the kernel evaluated (its counting build), the
+             bound restated per input (bytes, FP32 or SFU operations) and
+             the time of one CTA alone. Any tolerance exceeded fails (the
+             fusion pass has none: one differing owner, bit or area fails),
+             and so does a chain whose two calls differ in any bit.
 4. reference — the full-width model on a small input, GPU (kernels) against
              CPU (plain versions) in float32.
 5. stage 2 — ``run_query_tube_vps`` (window 2) with the ``mask2former_vps``
@@ -251,47 +258,128 @@ def check_fpn(torch, gen, dev):
     return results
 
 
-def check_fusion(torch, gen, dev):
-    from openpvsg_torch.kernels import fusion
+FUSION_DESIGN = ("simt f32: 8x8 low-res tile per CTA, halo tiles through a cp.async ring, "
+                 "phase-planar upsample with shared horizontal blends, queries by descending "
+                 "score, exact sigmoid only where a query can win, warp-reduced counts")
+SFU_PER_SM_CLOCK = 16  # ex2 and rcp run on the SFU, 16 per SM and clock on Hopper
+# FP32 operations per query-pixel pair: a quarter of a horizontal blend (a 4x
+# upsample shares each across four output rows), a vertical blend (3 each)
+# and the threshold
+FUSION_PAIR_FLOPS = 0.25 * 3 + 3 + 1
 
-    N, Q, h, w = 2, 100, 96, 120
-    H, W = 4 * h, 4 * w
-    ori = (360, 480)
+
+def fusion_input(torch, gen, dev, no_skip, N=2, Q=100, h=96, w=120):
+    """The main-path shape: logits randn * 3; the smoke input has scores
+    U(0.05, 1) with ~30% of the queries dropped; the no-skip input keeps
+    every query at one score, so no score-based skip applies."""
     low = (torch.randn((N, Q, h, w), generator=gen) * 3.0).to(dev)
+    if no_skip:
+        return low, torch.full((N, Q), 0.5, device=dev)
     scores = torch.rand((N, Q), generator=gen) * 0.95 + 0.05
     dropped = torch.rand((N, Q), generator=gen) < 0.3
-    scores = torch.where(dropped, torch.tensor(float("-inf")), scores).to(dev)
+    return low, torch.where(dropped, torch.tensor(float("-inf")), scores).to(dev)
 
-    got = fusion.fusion_maps(low, scores, (H, W), ori)
-    ref = fusion.fusion_maps_plain(low, scores, ori)
-    torch.cuda.synchronize()
-    owner_mis = int((got[0] != ref[0]).sum())
-    binary_mis = int((got[1] != ref[1]).sum())
-    d_mask = int((got[2] - ref[2]).abs().max())
-    d_orig = int((got[3] - ref[3]).abs().max())
-    # tolerance: the two sides evaluate the same float32 formulas, but the
-    # compiler may contract them into FMAs differently, which can flip an
-    # argmax or a sigmoid >= 0.5 at a near-tie; allow 1e-4 of the pixels
-    tol = max(1, int(1e-4 * N * H * W))
-    ok = max(owner_mis, binary_mis, d_mask, d_orig) <= tol
-    flops = 16 * N * Q * H * W
-    nbytes = N * Q * h * w * 4 + N * Q * 4 + N * H * W * 5 + 2 * N * Q * 4
-    bound_ms, bound_by = bound(flops, nbytes, "float32")
-    ms = time_ms(torch, lambda: fusion.fusion_maps(low, scores, (H, W), ori))
-    row = {"owner_mismatch": owner_mis, "binary_mismatch": binary_mis,
-           "mask_area_max_diff": d_mask, "original_area_max_diff": d_orig,
-           "exact_area_equal": d_mask == 0 and d_orig == 0, "tol_pixels": tol,
-           "dropped": int(dropped.sum()),
-           "ms": ms,
-           "plain_ms": time_ms(torch, lambda: fusion.fusion_maps_plain(low, scores, ori)),
-           "call_ms": call_ms(torch, lambda: fusion.fusion_maps(low, scores, (H, W), ori)),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-           "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms, "design": SIMT,
-           "ok": ok}
-    emit({"phase": "kernel_vs_plain", "kernel": "fusion_maps", "dtype": "float32", **row})
-    if not ok:
-        fail(f"fusion_maps disagrees with its plain version: {row}")
-    return row
+
+def sigmoid_counts(torch, low, scores):
+    """Query-pixel pairs whose exact sigmoid the function needs on these
+    inputs, from the plain side (never called by the port), by two exact
+    rules. val = s * sigmoid(u) is at most the query's bound, so a query
+    whose bound is below the best value of the queries visited before it
+    cannot take the pixel:
+
+    ascending   queries in index order (a tie goes to the earlier query), the
+                bound is the score: pairs with s > the best before
+                (torch.cummax);
+    descending  queries by descending score (ties by index), the bound is
+                max(s, 0), halved where u <= 0 (sigmoid(u) <= 0.5 there):
+                pairs whose bound reaches the best before.
+
+    Dropped queries (-inf) need none."""
+    F = torch.nn.functional
+    N, Q, h, w = low.shape
+    up = F.interpolate(low, size=(4 * h, 4 * w), mode="bilinear", align_corners=False)
+    kept = ~torch.isneginf(scores)[:, :, None, None]
+    val = torch.where(kept, scores[:, :, None, None] * torch.sigmoid(up),
+                      torch.tensor(float("-inf"), device=low.device))
+
+    def before(v):  # best of the queries visited earlier
+        prev = torch.cummax(v, dim=1).values
+        return torch.cat([torch.full_like(prev[:, :1], float("-inf")), prev[:, :-1]], 1)
+
+    needed = int(((scores[:, :, None, None] > before(val)) & kept).sum())
+    order = torch.argsort(scores, dim=1, descending=True, stable=True)
+    g = order[:, :, None, None].expand_as(up)
+    ub = scores.gather(1, order).clamp(min=0.0)[:, :, None, None]
+    ub = torch.where(up.gather(1, g) <= 0, 0.5 * ub, ub)
+    kept_desc = kept.gather(1, order[:, :, None, None])
+    needed_desc = int(((ub >= before(val.gather(1, g))) & kept_desc).sum())
+    return needed, needed_desc
+
+
+def fusion_bound(N, Q, h, w, n_sig, sm_clock_hz):
+    """Least time for the fusion pass on these inputs: the largest of the
+    bytes (logits read, maps written, scores and areas), the FP32 operations
+    (FUSION_PAIR_FLOPS per pair, 3 more per exact sigmoid the input needs)
+    and the SFU operations (ex2 and rcp per exact sigmoid)."""
+    pairs = N * Q * 16 * h * w
+    t = {"bytes": (N * Q * h * w * 4 + N * Q * 4 + N * 16 * h * w * 5 + 2 * N * Q * 4)
+         / PEAK_BYTES,
+         "fp32": (FUSION_PAIR_FLOPS * pairs + 3 * n_sig) / PEAK_FLOPS["float32"],
+         "sfu": 2 * n_sig / (132 * SFU_PER_SM_CLOCK * sm_clock_hz)}
+    term = max(t, key=t.get)
+    return t[term] * 1e3, term, {k: v * 1e3 for k, v in t.items()}
+
+
+def check_fusion(torch, gen, dev, sm_clock_hz):
+    from openpvsg_torch.kernels import fusion
+
+    rows = {}
+    for name in ("smoke", "no_skip"):
+        low, scores = fusion_input(torch, gen, dev, no_skip=name == "no_skip")
+        N, Q, h, w = low.shape
+        H, W = 4 * h, 4 * w
+        ori = (360, 480)
+        got = fusion.fusion_maps(low, scores, (H, W), ori)
+        ref = fusion.fusion_maps_plain(low, scores, ori)
+        torch.cuda.synchronize()
+        needed, needed_desc = sigmoid_counts(torch, low, scores)
+        executed = fusion.exact_sigmoid_count(low, scores, (H, W), ori)
+        pairs = N * Q * H * W
+        n_sig = min(needed, needed_desc)
+        bound_ms, term, terms = fusion_bound(N, Q, h, w, n_sig, sm_clock_hz)
+        ms = time_ms(torch, lambda: fusion.fusion_maps(low, scores, (H, W), ori))
+        row = {"input": name, "owner_mismatch": int((got[0] != ref[0]).sum()),
+               "binary_mismatch": int((got[1] != ref[1]).sum()),
+               "mask_area_max_diff": int((got[2] - ref[2]).abs().max()),
+               "original_area_max_diff": int((got[3] - ref[3]).abs().max()),
+               "tol_pixels": 0, "dropped": int(torch.isneginf(scores).sum()),
+               "sigmoid_share_needed": needed / pairs,
+               "sigmoid_share_needed_desc": needed_desc / pairs,
+               "sigmoid_share_executed": executed / pairs,
+               "ms": ms,
+               "plain_ms": time_ms(torch, lambda: fusion.fusion_maps_plain(low, scores, ori)),
+               "call_ms": call_ms(torch, lambda: fusion.fusion_maps(low, scores, (H, W), ori)),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": "bytes" if term == "bytes" else "operations",
+               "bound_term": term, "bound_terms_ms": terms,
+               "sm_clock_mhz": sm_clock_hz / 1e6,
+               "tflops": (FUSION_PAIR_FLOPS * pairs + 3 * n_sig) / ms / 1e9,
+               "bound_share": bound_ms / ms, "design": FUSION_DESIGN}
+        row["max_abs_err"] = max(row["mask_area_max_diff"], row["original_area_max_diff"])
+        row["ok"] = (row["owner_mismatch"] == row["binary_mismatch"] == row["max_abs_err"]
+                     == 0)
+        emit({"phase": "kernel_vs_plain", "kernel": "fusion_maps", "dtype": "float32", **row})
+        if not row["ok"]:
+            fail(f"fusion_maps disagrees with its plain version on the {name} input: {row}")
+        rows[name] = row
+        del low, scores, got, ref
+    # one CTA alone (8x8 low-res pixels, one frame): the kernel's latency
+    low, scores = fusion_input(torch, gen, dev, no_skip=False, N=1, h=8, w=8)
+    rows["smoke"]["one_cta_ms"] = time_ms(
+        torch, lambda: fusion.fusion_maps(low, scores, (32, 32), (32, 32)))
+    emit({"phase": "kernel_vs_plain", "kernel": "fusion_maps", "input": "one CTA",
+          "shape": [1, 100, 8, 8], "ms": rows["smoke"]["one_cta_ms"]})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +513,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     reports = build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                    if "Used" in ln or "spill" in ln]
+    # each kernel entry's name, then its registers and spills
+    ptxas = {name: [ln.split("'")[1] if "Compiling entry function" in ln
+                    else ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                    if "Compiling entry function" in ln or "Used" in ln or "spill" in ln]
              for name, log in reports.items()}
     emit({"phase": "build", "seconds": seconds, "sources": list(build.SOURCES),
           "ptxas": ptxas})
@@ -438,7 +528,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(args.seed)
     fpn_rows = check_fpn(torch, gen, dev)
-    fusion_row = check_fusion(torch, gen, dev)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True, check=True, timeout=60).stdout.split()[0]
+    fusion_rows = check_fusion(torch, gen, dev, float(clock) * 1e6)
+    fusion_row = fusion_rows["smoke"]
 
     # 4. the full-width model on a small input against the CPU path
     cfg = stage2_config()
@@ -463,16 +557,19 @@ def main(argv=None) -> int:
         row = fusion_row if name == "fusion_maps" else fpn_rows[(name, "bfloat16")]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                  "launches": launches[fn.__name__],
-                 "max_abs_err": (row["max_abs_err"] if name != "fusion_maps"
-                                 else max(row["mask_area_max_diff"],
-                                          row["original_area_max_diff"])),
+                 "max_abs_err": row["max_abs_err"],
                  "ms": row["ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "tflops": row["tflops"],
                  "bound_share": row["bound_share"], "design": row["design"],
                  "parity": "pass",
                  "dtype": "float32" if name == "fusion_maps" else "bfloat16"}
-        if name != "fusion_maps":
+        if name == "fusion_maps":
+            ns = fusion_rows["no_skip"]
+            entry.update(bound_term=row["bound_term"],
+                         no_skip_ms=ns["ms"], no_skip_plain_ms=ns["plain_ms"],
+                         no_skip_bound_ms=ns["bound_ms"], no_skip_bound_term=ns["bound_term"])
+        else:
             f32 = fpn_rows[(name, "float32")]
             entry.update(f32_max_abs_err=f32["max_abs_err"], f32_ms=f32["ms"],
                          f32_plain_ms=f32["plain_ms"], f32_bound_ms=f32["bound_ms"])

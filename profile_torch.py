@@ -16,12 +16,16 @@ this checkout and another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``) on the same card: each checkout runs
 stage 2 ``--runs`` times in a process of its own, in the order other, this,
 this, other, and one JSON line gives every run and each side's median.
+
+With ``--sass`` it instead prints static SASS instruction counts
+(``cuobjdump -sass``) of the fusion kernel's main-path build.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +105,39 @@ def compare(other: str, seed: int, runs: int, card: str) -> int:
     return 0
 
 
+def sass_counts(build, kernel="fusion_maps_kernelILb0E"):
+    """Static SASS counts of the fusion kernel (its main-path build, not the
+    counting one): the whole kernel and its innermost loop that loads from
+    shared memory, blends and reduces across the warp (the two-queries-a-step
+    loop), by class. Static: every path in the loop counts once, the rarely
+    taken ones included, so this is not a per-pair cost."""
+    build.build(["fusion"])
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", build.library_path("fusion")],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    body = text.split(kernel, 1)[1].split("Function :", 1)[0]
+    ins = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+    loops = []  # (target, address) of backward branches
+    for addr, op, args in ins:
+        t = re.search(r"0x([0-9a-f]+)", args)
+        if op == "BRA" and t and int(t.group(1), 16) < addr:
+            loops.append((int(t.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops
+             if all(any(a <= x <= b and op.startswith(key) for x, op, _ in ins)
+                    for key in ("REDUX.SUM", "FFMA", "LDS"))]
+    out = {"kernel": kernel, "kernel_instructions": len(ins)}
+    if inner:
+        a, b = min(inner, key=lambda ab: ab[1] - ab[0])
+        loop = [op.split(".")[0] for x, op, _ in ins if a <= x <= b]
+        out.update(loop_instructions=len(loop),
+                   loop_fp32=sum(op in ("FFMA", "FMUL", "FADD") for op in loop),
+                   loop_mufu=loop.count("MUFU"), loop_lds=loop.count("LDS"),
+                   loop_branch=sum(op in ("BRA", "BSSY", "BSYNC") for op in loop))
+    return out
+
+
 def family(name: str) -> str:
     low = name.lower()
     for key, fam in FAMILIES:
@@ -116,6 +153,8 @@ def main(argv=None) -> int:
                     help="compare stage-2 frames/s with another checkout")
     ap.add_argument("--runs", type=int, default=3,
                     help="stage-2 runs per process with --ab")
+    ap.add_argument("--sass", action="store_true",
+                    help="print the fusion kernel's static SASS counts")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -137,6 +176,9 @@ def main(argv=None) -> int:
     print(card.splitlines()[0], flush=True)
     if args.ab:
         return compare(args.ab, args.seed, args.runs, card.splitlines()[0])
+    if args.sass:
+        print(json.dumps({"card": card.splitlines()[0], **sass_counts(build)}), flush=True)
+        return 0
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

@@ -146,15 +146,67 @@ def test_fpn_wrappers_check_their_arguments(dev):
     assert out.shape == (1, 4, 4, 32)
 
 
-@pytest.mark.parametrize("N,Q,h,w,ori", [(1, 1, 5, 7, (20, 28)),
-                                         (2, 7, 16, 20, (57, 70)),
-                                         (3, 100, 24, 30, (90, 120))])
-def test_fusion_matches_plain(dev, N, Q, h, w, ori):
-    g = torch.Generator().manual_seed(Q)
-    low = (torch.randn((N, Q, h, w), generator=g) * 3).to(dev)
+# sigmoid(u) >= 0.5 flips near u = -1.78e-7, not at 0; the kernel decides the
+# binary bit by the sign outside |u| < 2^-12 and by the exact formula inside
+_BAND = 2.0 ** -12
+_EDGE_VALUES = [0.0, -0.0, -1e-7, -1.78e-7, -1.7829e-7, -1.8e-7, -2e-7,
+                _BAND, -_BAND, _BAND * (1 - 2 ** -23), -_BAND * (1 - 2 ** -23),
+                _BAND * (1 + 2 ** -23), -_BAND * (1 + 2 ** -23)]
+
+
+def _fusion_case(kind, N, Q, h, w, g):
+    low = torch.randn((N, Q, h, w), generator=g) * 3
     scores = torch.rand((N, Q), generator=g) * 0.9 + 0.1
-    scores[torch.rand((N, Q), generator=g) < 0.3] = float("-inf")
-    scores = scores.to(dev)
+    if kind == "random":
+        scores[torch.rand((N, Q), generator=g) < 0.3] = float("-inf")
+    elif kind == "flip_band":
+        # planes of edge values, so upsampled values sit at them and at
+        # their blends
+        vals = torch.tensor(_EDGE_VALUES)
+        idx = torch.randint(0, len(vals), (N, Q, h, w), generator=g)
+        low = torch.where(torch.rand((N, Q, 1, 1), generator=g) < 0.5, vals[idx],
+                          vals[idx[..., :1, :1]].expand(N, Q, h, w))
+    elif kind == "ties":
+        # sigmoid(40) == 1.0: two queries tie at val == score, the lower wins
+        tied = [Q // 3, Q - 1]
+        low[:, tied] = 40.0
+        scores[:] = torch.rand((N, Q), generator=g) * 0.5
+        scores[:, tied] = 0.75
+    elif kind == "tie_order":
+        # val 0.375 twice: a higher index with the higher score (visited
+        # first, sigmoid(0) = 0.5) and a lower index (sigmoid(40) = 1.0); the
+        # lower index takes the pixel on the tie
+        scores[:] = torch.rand((N, Q), generator=g) * 0.3
+        low[:, Q // 3], scores[:, Q // 3] = 40.0, 0.375
+        low[:, Q - 1], scores[:, Q - 1] = 0.0, 0.75
+    elif kind == "all_dropped":
+        scores[:] = float("-inf")
+    elif kind == "one_kept":
+        keep = scores[:, :1].clone()
+        scores[:] = float("-inf")
+        scores[:, Q // 2] = keep[:, 0]
+    elif kind == "no_skip":
+        scores[:] = 0.5
+    return low.contiguous(), scores
+
+
+# (N, Q, h, w, ori): tiles of 8x8 low-res pixels that end partway, ori below
+# the padded frame, one query, more queries than a 32-query ring stage holds
+# (Q = 130 ends with one query per group), and the main-path width with a
+# ragged edge
+FUSION_SHAPES = [(1, 1, 5, 7, (20, 28)), (2, 7, 16, 20, (57, 70)),
+                 (3, 100, 24, 30, (90, 120)), (3, 130, 24, 30, (81, 117)),
+                 (2, 100, 97, 121, (383, 470))]
+FUSION_KINDS = ["random", "flip_band", "ties", "tie_order", "all_dropped", "one_kept",
+                "no_skip"]
+
+
+@pytest.mark.parametrize("kind", FUSION_KINDS)
+@pytest.mark.parametrize("N,Q,h,w,ori", FUSION_SHAPES)
+def test_fusion_matches_plain(dev, N, Q, h, w, ori, kind):
+    g = torch.Generator().manual_seed(Q)
+    low, scores = _fusion_case(kind, N, Q, h, w, g)
+    low, scores = low.to(dev), scores.to(dev)
     before = fusion.fusion_maps.launches
     got = fusion.fusion_maps(low, scores, (4 * h, 4 * w), ori)
     want = fusion.fusion_maps_plain(low, scores, ori)
@@ -162,6 +214,27 @@ def test_fusion_matches_plain(dev, N, Q, h, w, ori):
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     for a, b in zip(got, want):
         assert torch.equal(a, b.to(a.dtype))
+
+
+@pytest.mark.parametrize("N,Q,h,w", [(1, 3, 5, 7), (2, 100, 96, 120), (2, 130, 97, 121)])
+def test_fusion_exact_sigmoid_count(dev, N, Q, h, w):
+    """The counting build evaluates the sigmoid for all eight pixels of every
+    lane of a warp that needs one: with one kept query that is each tile's
+    first visit of it (tiles of 8x8 low-res pixels, padding included); with
+    every query dropped, none. It is not a launch of the main path."""
+    g = torch.Generator().manual_seed(Q)
+    tile_pixels = N * 16 * (8 * -(-h // 8)) * (8 * -(-w // 8))
+    before = fusion.fusion_maps.launches
+    counts = {}
+    for kind in ("all_dropped", "one_kept", "random", "no_skip"):
+        low, scores = _fusion_case(kind, N, Q, h, w, g)
+        counts[kind] = fusion.exact_sigmoid_count(low.to(dev), scores.to(dev),
+                                                  (4 * h, 4 * w), (4 * h, 4 * w))
+    assert fusion.fusion_maps.launches == before
+    assert counts["all_dropped"] == 0 and counts["one_kept"] == tile_pixels
+    for kind in ("random", "no_skip"):
+        assert counts[kind] % 256 == 0
+        assert tile_pixels <= counts[kind] <= Q * tile_pixels
 
 
 def test_fusion_ties_go_to_the_first_query(dev):

@@ -124,6 +124,16 @@ def test_fusion_maps_rejects_unpadded_shape(rng):
                            (60, 80), (60, 72))
 
 
+def test_exact_sigmoid_count_needs_the_card(rng):
+    """The count measures the CUDA kernel's work: CPU tensors have no such
+    work to count, and the call launches nothing."""
+    low, scores = _fusion_inputs(rng)
+    with pytest.raises(ValueError, match="CUDA"):
+        fusion.exact_sigmoid_count(torch.from_numpy(low), torch.from_numpy(scores),
+                                   (64, 80), (64, 80))
+    assert fusion.fusion_maps.launches == 0
+
+
 @pytest.mark.parametrize("ori", [(64, 80), (57, 70)])
 def test_panoptic_fusion_matches_jax(rng, ori):
     """The port's panoptic_fusion (kernel B2 plain version + torch) against
@@ -149,6 +159,52 @@ def test_panoptic_fusion_matches_jax(rng, ori):
                                       err_msg=key)
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]),
                                rtol=1e-6)
+
+
+def test_panoptic_fusion_binary_rule_matches_jax_in_the_flip_band(rng):
+    """Logits whose upsampled values lie in [-1.79e-7, 0) or at +-0, where
+    float32 sigmoid(u) >= 0.5 holds though u < 0 (it flips near
+    u = -1.783e-7): the port's panoptic_fusion and openpvsg_tpu's
+    (models/fusion.py:66, sigmoid >= 0.5) agree bit for bit. The Pallas
+    kernel's oracle _fusion_reference (fusion_kernel.py:221) thresholds
+    up >= 0.0 instead and differs here; the port follows fusion.py."""
+    from openpvsg_tpu.models.fusion import panoptic_fusion as jax_fusion
+    from openpvsg_tpu.ops.pallas.fusion_kernel import _fusion_reference
+    from openpvsg_tpu.ops.resize import resize_bilinear as jax_resize
+    from openpvsg_torch.models.fusion import panoptic_fusion
+
+    N, Q, h, w, things, stuff = 1, 8, 8, 10, 3, 2
+    # every blend of these (3/8, 5/8, 1/8, 7/8 weights) stays in
+    # [-1.4 * 2^-23, 0], inside the band where sigmoid >= 0.5
+    vals = np.array([-0.0, 0.0, -2.0 ** -24, -2.0 ** -23, -1.25 * 2.0 ** -23,
+                     -1.4 * 2.0 ** -23], np.float32)
+    assert (torch.sigmoid(torch.from_numpy(vals)) >= 0.5).all()
+    low = vals[rng.integers(0, len(vals), (N, Q, 2, 2))]
+    low = np.repeat(np.repeat(low, h // 2, axis=2), w // 2, axis=3)
+    cls = (rng.standard_normal((N, Q, things + stuff + 1)) * 2).astype(np.float32)
+    cls[..., -1] = -10.0  # no query picks the void class
+    ori = (30, 36)
+    got = panoptic_fusion(torch.from_numpy(cls), torch.from_numpy(low),
+                          things, stuff, 0.0, 0.1, (4 * h, 4 * w), ori)
+    up = jax_resize(jnp.asarray(low).reshape(N * Q, h, w, 1), (4 * h, 4 * w))
+    up = up.reshape(N, Q, 4 * h, 4 * w)
+    assert float(up.max()) <= 0.0 and float(up.min()) >= -1.79e-7
+    want = jax.vmap(lambda c, m: jax_fusion(c, m, things, stuff, 0.0, 0.1))(
+        jnp.asarray(cls), up[:, :, :ori[0], :ori[1]])
+    assert int(np.asarray(want["query_keep"]).sum()) > 0
+    for key in ("pan_seg", "query_keep", "segment_id"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    # every pixel's owner is binary under fusion.py's rule, so nothing is void
+    assert int((got["pan_seg"] == things + stuff).sum()) == 0
+    # the Pallas oracle's up >= 0.0 drops the pixels with u < 0
+    scores = torch.softmax(torch.from_numpy(cls), -1).amax(-1)
+    ref_orig = np.asarray(_fusion_reference(jnp.asarray(low[0]),
+                                            jnp.asarray(scores[0].numpy()),
+                                            jnp.asarray(ori))[3])
+    port_orig = fusion.fusion_maps(torch.from_numpy(low), scores,
+                                   (4 * h, 4 * w), ori)[3][0].numpy()
+    assert (ref_orig < port_orig).any()
 
 
 def test_minvis_stitch_matches_jax(rng):
