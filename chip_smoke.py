@@ -35,7 +35,37 @@ Phases, each printing one JSON line:
              have launched. The same frames run a second time (timed as
              well), and whether the two ``masks.txt`` files are
              byte-identical is reported.
-6. the ``{"kernels": [...]}`` line, then the last line
+6. train_reference — one ``SegmenterTrainer`` step of the tests' small
+             model (R-26, 8 queries, 3 decoder layers, 2 clips of 2 64x64
+             frames) on the card and on the CPU from the same state dict and
+             batch, at the full lr of 1e-4 (``warmup_ratio`` 1): the losses,
+             the assignments, the largest gradient difference (relative to
+             each tensor's scale, between the two and from each to the
+             step's float64 gradients on the CPU), and the card's update
+             against the CPU's update from the card's gradients. A loss more
+             than 1e-3 apart (relative), a differing assignment, a gradient
+             more than 1e-2 of its scale apart or an update more than 1e-2 of
+             itself apart (beyond one float32 ulp of the parameter; the
+             attention key biases, whose exact gradient is zero, aside)
+             fails.
+7. train   — stage-1 training of ``mask2former_vps`` at full width (R-50
+             'sync_bn' in training mode, 256-channel pixel decoder, 6 axial
+             layers, 9 decoder layers with all-layer masks, 100 queries, 126
+             classes), random weights from the seed, float32: the preset's
+             ``samples_per_gpu`` synthetic clips of 2 frames at 360x480
+             padded to 384x480 with 1-20 blob tubes each; 6 steps (loss per
+             step, median step ms and host LAP ms over steps 2-6, frames/s,
+             peak GiB, a checksum of the parameters), then a checkpoint round
+             trip whose seventh step must equal the uninterrupted one. Both
+             train phases run with torch's default TF32 settings, as a user's
+             caller would; the trainer turns TF32 off inside its step. It
+             fails on a non-finite loss, TF32 on inside a step, a parameter
+             with a gradient that did not move, a BN whose running statistics
+             did not change, a B1 or B2 launch during training (counted over
+             both train phases), or a resumed seventh step whose logs differ
+             by more than 1e-5 (relative) or whose update differs by more
+             than 1e-2 of itself (as in phase 6).
+8. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -479,6 +509,289 @@ def run_stage2(torch, np, cfg, state, seed, wrappers, n_frames=16):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: stage-1 training
+# ---------------------------------------------------------------------------
+
+def tiny_train_config():
+    """The tests' small model (tests/test_torch_train.py)."""
+    from openpvsg_torch.config import (BackboneConfig, Mask2FormerConfig,
+                                       PixelDecoderConfig,
+                                       TransformerDecoderConfig)
+
+    return Mask2FormerConfig(
+        num_things_classes=3, num_stuff_classes=2, num_queries=8,
+        backbone=BackboneConfig(depth=26, norm="sync_bn"),
+        pixel_decoder=PixelDecoderConfig(encoder_layers=1, ffn_channels=64),
+        decoder=TransformerDecoderConfig(num_layers=3, ffn_channels=64))
+
+
+def train_batch(np, clips, frames, hw, padded_hw, max_instances, num_classes,
+                seed):
+    """Synthetic clips from the seed: uint8 noise frames zero-padded to
+    ``padded_hw``, each clip with 1..max_instances rectangular tubes (one
+    colour each, drifting from frame to frame) and random labels; the batch
+    dict of ``pad_targets`` (masks at stride 4)."""
+    from openpvsg_torch.train.segmenter import pad_targets
+
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    samples = []
+    for _ in range(clips):
+        images = np.zeros((frames, *padded_hw, 3), np.uint8)
+        images[:, :H, :W] = rng.integers(0, 255, (frames, H, W, 3), dtype=np.uint8)
+        n = int(rng.integers(1, max_instances + 1))
+        tubes = np.zeros((n, frames, *padded_hw), np.uint8)
+        for j in range(n):
+            h = int(rng.integers(H // 10, H // 3))
+            w = int(rng.integers(W // 10, W // 3))
+            y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+            dy, dx = (int(d) for d in rng.integers(-H // 20, H // 20 + 1, 2))
+            colour = rng.integers(0, 255, 3, dtype=np.uint8)
+            for t in range(frames):
+                yt = min(max(y + t * dy, 0), H - h)
+                xt = min(max(x + t * dx, 0), W - w)
+                tubes[j, t, yt:yt + h, xt:xt + w] = 1
+                images[t, yt:yt + h, xt:xt + w] = colour
+        samples.append({"images": images,
+                        "gt_labels": rng.integers(0, num_classes, n),
+                        "gt_mask_tubes": tubes})
+    return pad_targets(samples, max_instances)
+
+
+def launch_counts(wrappers):
+    return {fn.__name__: fn.launches for fn in wrappers}
+
+
+def float64_grads(torch, cfg, state, images, batch, assigned):
+    """The same step's gradients in float64 on the CPU, with the same
+    assignment: the arbiter of the two float32 runs."""
+    from openpvsg_torch.models.mask2former import Mask2Former
+    from openpvsg_torch.train.losses import mask2former_loss
+
+    model = Mask2Former(cfg, train=True).double()
+    model.load_state_dict(state)
+    cls, masks, _ = model(images.double())
+    loss, _ = mask2former_loss(
+        cls, masks, torch.from_numpy(batch["gt_labels"]).long(),
+        torch.from_numpy(batch["gt_masks"]).double(),
+        torch.from_numpy(batch["gt_valid"]), cfg.num_classes,
+        cls_weight=cfg.loss_cls_weight, mask_weight=cfg.loss_mask_weight,
+        dice_weight=cfg.loss_dice_weight, bg_cls_weight=cfg.bg_cls_weight,
+        assigned=assigned)
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def grad_rel_diff(got, want):
+    """Largest gradient difference relative to each tensor's scale, and
+    where; key-projection biases (an exact gradient of zero, scale < 1e-6)
+    are left out."""
+    worst, where = 0.0, None
+    for n, g in want.items():
+        scale = float(g.abs().max())
+        if scale > 1e-6:
+            rel = float((got[n].double() - g).abs().max()) / scale
+            if rel > worst:
+                worst, where = rel, n
+    return worst, where
+
+
+def key_bias(name):
+    """Attention key-projection biases: the softmax over keys is invariant
+    to them, so their exact gradient is zero and what they get is rounding
+    noise, which Adam scales to a step of the full lr."""
+    return name.endswith("k_proj.bias")
+
+
+def update_gap(names, before, after, other):
+    """How far ``other`` lies from ``after``, the parameters one update
+    past ``before``, as a share of that update: for each tensor but the
+    key biases, max|other - after| less one float32 ulp of the tensor's
+    largest value, over max|after - before|. Returns the largest share and
+    its tensor's name; 1e-2 means the updates agree within 1% of the
+    update."""
+    worst, at = 0.0, None
+    for n, b, a, o in zip(names, before, after, other):
+        if key_bias(n):
+            continue
+        gap = float((o - a).abs().max()) - 2.0 ** -23 * float(b.abs().max())
+        step = float((a - b).abs().max())
+        share = (gap / step if step > 0 else float("inf")) if gap > 0 else 0.0
+        if share > worst:
+            worst, at = share, n
+    return worst, at
+
+
+def tf32_probe(torch, model):
+    """Records (matmul, cuDNN) TF32 flags each time the model runs."""
+    seen = []
+    model.register_forward_pre_hook(lambda *_: seen.append(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+    return seen
+
+
+def check_train_reference(torch, np, seed):
+    """One train step of the small model on the card and on the CPU at the
+    full lr, the step's float64 gradients on the CPU, and the card's update
+    against the CPU's update from the card's gradients."""
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = tiny_train_config()
+    state = random_state_dict(cfg, seed)
+    batch = train_batch(np, 2, 2, (64, 64), (64, 64), 3, cfg.num_classes, seed)
+    # warmup_ratio 1: the first update runs at the full lr of 1e-4
+    tcfg = TrainConfig(warmup_ratio=1.0)
+    cpu, gpu = (SegmenterTrainer(cfg, tcfg, steps_per_epoch=10, device=dev,
+                                 state_dict=state) for dev in ("cpu", None))
+    tf32 = tf32_probe(torch, gpu.model)
+    logs = {}
+    for name, tr in (("cpu", cpu), ("gpu", gpu)):
+        _, out = tr.loss_and_grads(batch)
+        logs[name] = {k: float(v.detach()) for k, v in out.items()}
+    names = [n for n, _ in cpu.model.named_parameters()]
+    grads = {name: {n: p.grad.detach().cpu().clone() for n, p in
+                    zip(names, tr.params)} for name, tr in (("cpu", cpu), ("gpu", gpu))}
+    exact = float64_grads(torch, cfg, state, cpu.device_batch(batch)[0], batch,
+                          cpu.last_assigned)
+    before = [p.detach().clone() for p in cpu.params]
+    for n, p in zip(names, cpu.params):  # the CPU updates from the card's grads
+        p.grad.copy_(grads["gpu"][n])
+    cpu.apply_updates()
+    gpu.apply_updates()
+    gap, gap_at = update_gap(names, before, [p.detach() for p in cpu.params],
+                             [p.detach().cpu() for p in gpu.params])
+    loss_rel = max(abs(logs["gpu"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in logs["cpu"].items())
+    grad_rel, grad_rel_name = grad_rel_diff(grads["gpu"], grads["cpu"])
+    gpu_f64, gpu_f64_name = grad_rel_diff(grads["gpu"], exact)
+    cpu_f64, cpu_f64_name = grad_rel_diff(grads["cpu"], exact)
+    same_assignment = bool(np.array_equal(cpu.last_assigned, gpu.last_assigned))
+    row = {"size": "R-26, Q=8, 3 decoder layers, B=2, T=2, 64x64, N=3",
+           "dtype": "float32", "lr": float(cpu.schedule(0)),
+           "tf32_in_step": tf32, "loss_cpu": logs["cpu"]["loss"],
+           "loss_gpu": logs["gpu"]["loss"], "max_loss_rel_diff": loss_rel,
+           "assignments_equal": same_assignment,
+           "max_grad_rel_diff": grad_rel, "max_grad_rel_diff_at": grad_rel_name,
+           "gpu_vs_float64_max_grad_rel_diff": gpu_f64,
+           "gpu_vs_float64_at": gpu_f64_name,
+           "cpu_vs_float64_max_grad_rel_diff": cpu_f64,
+           "cpu_vs_float64_at": cpu_f64_name,
+           "max_update_gap_share": gap, "max_update_gap_at": gap_at}
+    # float32 gradients of a conv feeding a normalization are ill-conditioned
+    # (the norm's backward removes the mean and scale its input carries), so
+    # two summation orders leave them up to a few 1e-3 of their scale apart;
+    # a wrong gradient is O(1) apart. Adam's first step divides each element
+    # by its own magnitude, so the updates are compared from one set of
+    # gradients: what differs then is the clip and the optimizer alone
+    row["ok"] = (loss_rel <= 1e-3 and same_assignment and grad_rel <= 1e-2
+                 and gap <= 1e-2 and tf32 == [(False, False)])
+    row["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train_reference", **row})
+    if not row["ok"]:
+        fail(f"the train step on the card disagrees with the CPU: {row}")
+
+
+def run_train(torch, np, seed, steps=6):
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    t_phase = time.perf_counter()
+    pvsg = mask2former_vps()
+    cfg, tcfg = pvsg.model, pvsg.train
+    clips, frames = tcfg.samples_per_gpu, cfg.num_frames
+    batch = train_batch(np, clips, frames, (360, 480), (384, 480), 20,
+                        cfg.num_classes, seed)
+    t0 = time.perf_counter()
+    trainer = SegmenterTrainer(cfg, tcfg, steps_per_epoch=1000, seed=seed)
+    build_s = time.perf_counter() - t0
+    model = trainer.model
+    tf32 = tf32_probe(torch, model)
+    params0 = [p.detach().clone() for p in trainer.params]
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    had_grad = torch.zeros(len(trainer.params), dtype=torch.bool, device=trainer.device)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, lap_ms, wait_ms = [], [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(logs["loss"])
+        lap_ms.append(trainer.last_timings["host_lap_s"] * 1e3)
+        wait_ms.append(trainer.last_timings["cost_wait_s"] * 1e3)
+        had_grad |= torch.stack([p.grad.abs().amax() > 0 for p in trainer.params])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = torch.stack([(p.detach() != p0).any() for p, p0 in
+                         zip(trainer.params, params0)])
+    names = [n for n, _ in model.named_parameters()]
+    unmoved = [names[i] for i in torch.nonzero(had_grad & ~moved).flatten().tolist()]
+    stats = dict(model.named_buffers())
+    unchanged = [n for n, b in stats0.items() if torch.equal(stats[n], b)]
+    checksum = float(sum(p.detach().double().sum() for p in trainer.params))
+    n_inst = int(batch["gt_valid"].sum())
+    med = statistics.median(step_ms[1:])
+    row = {"config": "mask2former_vps", "dtype": "float32", "clips": clips,
+           "frames_per_clip": frames, "frame_hw": [360, 480],
+           "padded_hw": [384, 480], "max_instances": 20, "instances": n_inst,
+           "steps": steps, "build_s": build_s, "losses": losses, "step_ms": step_ms,
+           "step_ms_median_2_6": med, "host_lap_ms_median_2_6": statistics.median(lap_ms[1:]),
+           "cost_wait_ms_median_2_6": statistics.median(wait_ms[1:]),
+           "host_lap_share": statistics.median(lap_ms[1:]) / med,
+           "frames_per_s": clips * frames / (med / 1e3), "peak_gib": peak_gib,
+           "params": len(names), "params_with_grad": int(had_grad.sum()),
+           "params_unmoved": unmoved, "bn_buffers": len(stats0),
+           "bn_buffers_unchanged": unchanged, "param_checksum": checksum,
+           "tf32_in_steps": sorted(set(tf32))}
+    del params0, stats0
+
+    # checkpoint round trip: the seventh step from a reloaded trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.pt")
+        save_checkpoint(path, trainer)
+        before7 = [p.detach().clone() for p in trainer.params]
+        logs7 = trainer.step(batch)
+        after7 = [p.detach().clone() for p in trainer.params]
+        del trainer
+        resumed = SegmenterTrainer(cfg, tcfg, steps_per_epoch=1000, seed=seed + 1)
+        load_checkpoint(path, resumed)
+        logs7r = resumed.step(batch)
+    loss_diff = max(abs(logs7r[k] - v) / max(abs(v), 1e-12) for k, v in logs7.items())
+    param_diff = max(float((p.detach() - q).abs().max())
+                     for p, q in zip(resumed.params, after7))
+    gap, gap_at = update_gap(names, before7, after7,
+                             [p.detach() for p in resumed.params])
+    row.update(step7_loss=logs7["loss"], step7_loss_resumed=logs7r["loss"],
+               step7_max_log_rel_diff=loss_diff, step7_max_param_abs_diff=param_diff,
+               step7_max_update_gap_share=gap, step7_max_update_gap_at=gap_at)
+    # the card's kernels are not bitwise deterministic (atomics in the
+    # resize backward): equal means logs within 1e-5 relative and the
+    # seventh update within 1% of itself (the key biases' noise aside)
+    resumed_equal = loss_diff <= 1e-5 and gap <= 1e-2
+    problems = []
+    if not all(np.isfinite(losses)) or not np.isfinite(logs7["loss"]):
+        problems.append("a loss is not finite")
+    if set(tf32) != {(False, False)}:
+        problems.append(f"TF32 was on inside a step: {sorted(set(tf32))}")
+    if unmoved:
+        problems.append(f"{len(unmoved)} parameters with a gradient did not move")
+    if unchanged:
+        problems.append(f"{len(unchanged)} BN statistics did not change")
+    if not resumed_equal:
+        problems.append("the resumed seventh step differs")
+    row["ok"] = not problems
+    row["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train", **row})
+    if problems:
+        fail("train: " + "; ".join(problems))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -543,7 +856,21 @@ def main(argv=None) -> int:
     wrappers = fpn.KERNEL_WRAPPERS + fusion.KERNEL_WRAPPERS
     launches = run_stage2(torch, np, cfg, state, args.seed, wrappers)
 
-    # 6. the kernels line and the result
+    # 6-7. stage-1 training with torch's default TF32 settings, as a caller
+    # would leave them (the trainer turns TF32 off in its step); neither B1
+    # nor B2 may launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": True})
+    before = launch_counts(wrappers)
+    check_train_reference(torch, np, args.seed)
+    run_train(torch, np, args.seed)
+    during = {k: v - before[k] for k, v in launch_counts(wrappers).items()}
+    emit({"phase": "train_launches", "launches": during})
+    if any(during.values()):
+        fail(f"training launched a kernel of the inference path: {during}")
+
+    # 8. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",

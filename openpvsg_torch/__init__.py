@@ -9,6 +9,8 @@ counterpart is found by its path:
 - ``openpvsg_torch.kernels`` — hand-written CUDA kernels for Hopper
   (``csrc/*.cu``) with their plain-PyTorch versions, bound through ctypes.
 - ``openpvsg_torch.infer``   — segmenter inference and the stage-2 VPS runner.
+- ``openpvsg_torch.train``   — stage-1 segmenter training: Hungarian
+  assigner, dense loss, optimizer recipe, trainer, checkpoints.
 - ``openpvsg_torch.data``    — RLE codec, stage-boundary files, frame loading.
 - ``openpvsg_torch.tracker`` — query-feature tubes.
 - ``openpvsg_torch.native``  — ctypes binding of ``native/pvsg_native.cpp``.

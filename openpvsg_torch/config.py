@@ -1,10 +1,12 @@
-"""Segmenter configuration: the ``Mask2FormerConfig`` family and the
-``mask2former_vps`` preset.
+"""Segmenter configuration: the ``Mask2FormerConfig`` family, the
+segmenter's ``TrainConfig`` and the ``mask2former_vps`` preset.
 
-The port's own copy of the inference fields of ``openpvsg_tpu.config``
-(same names, same defaults), so a configuration reads the same in both
-packages. Training, video-clip, tracker and relation settings are not
-ported yet.
+The port's own copy of the inference and stage-1 training fields of
+``openpvsg_tpu.config`` (same names, same defaults), so a configuration
+reads the same in both packages. Tracker, relation and data settings, and
+the training CLI's fields (epochs, seed, checkpoint and log intervals),
+are not ported yet. ``check_training_config`` refuses the training values
+this port does not run yet, naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ class BackboneConfig:
     # inference; 'folded' means the BN affine is folded into the convs.
     norm: str = "frozen_bn"
     out_indices: Tuple[int, ...] = (0, 1, 2, 3)
+    dtype: str = "float32"  # compute dtype; params always float32
 
 
 @dataclass(frozen=True)
@@ -55,9 +58,39 @@ class Mask2FormerConfig:
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     pixel_decoder: PixelDecoderConfig = field(default_factory=PixelDecoderConfig)
     decoder: TransformerDecoderConfig = field(default_factory=TransformerDecoderConfig)
+    # video (VPS) options
+    video: bool = False
+    num_frames: int = 2
+    # loss weights (reference lines 97-117)
+    loss_cls_weight: float = 2.0
+    loss_mask_weight: float = 5.0
+    loss_dice_weight: float = 5.0
+    bg_cls_weight: float = 0.1
+    # 'dense': mask losses and matching costs over every stride-4 pixel;
+    # 'points': the reference's point-rend sampling (not ported)
+    loss_sampling: str = "dense"
+    # 'auto' | 'hungarian' (host LAP) | 'lapjv' | 'greedy' (not ported)
+    assigner: str = "auto"
+    # average-pool factor of the matching operands (1 = exact)
+    match_downsample: int = 1
+    # dense mask-loss layout: 'query' | 'target' (not ported)
+    loss_layout: str = "query"
+    # storage dtype of the per-layer mask logits: 'float32' | 'bfloat16'
+    mask_logits_dtype: str = "float32"
+    num_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
     # fusion thresholds (reference test cfg)
     object_mask_thr: float = 0.8
     iou_thr: float = 0.8
+    # head variants: split thing/stuff queries, focal classification loss,
+    # per-pixel semantic aux head
+    split_thing_stuff: bool = False
+    focal_cls: bool = False
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    with_sem_seg: bool = False
+    sem_seg_weight: float = 1.0
 
     @property
     def num_classes(self) -> int:
@@ -65,16 +98,73 @@ class Mask2FormerConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Segmenter optimization (reference config lines 163-191 + schedules).
+    ``samples_per_gpu`` is the clips per step that ``chip_smoke.py``'s train
+    phase starts from."""
+    lr: float = 1e-4
+    weight_decay: float = 0.05
+    backbone_lr_mult: float = 0.1
+    grad_clip: float = 0.01
+    lr_step_epochs: Tuple[int, ...] = (7,)
+    lr_gamma: float = 0.1
+    warmup_iters: int = 10
+    warmup_ratio: float = 1e-3
+    samples_per_gpu: int = 32
+
+
+@dataclass(frozen=True)
 class PVSGConfig:
     name: str = "mask2former_ips"
     model: Mask2FormerConfig = field(default_factory=Mask2FormerConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def mask2former_vps() -> PVSGConfig:
     """configs/mask2former_vps/mask2former_video_r50.py: R-50 with SyncBN,
-    trained on 2-frame clips; stage 2 runs each frame with T=1 and stitches
-    MinVIS windows."""
+    trained on 2-frame clips with the 3-D positional encoding; stage 2 runs
+    each frame with T=1 and stitches MinVIS windows."""
     return PVSGConfig(
         name="mask2former_vps",
-        model=Mask2FormerConfig(backbone=BackboneConfig(norm="sync_bn")),
+        model=Mask2FormerConfig(video=True, num_frames=2,
+                                backbone=BackboneConfig(norm="sync_bn")),
+        train=TrainConfig(samples_per_gpu=16),
     )
+
+
+def resolve_assigner(cfg: Mask2FormerConfig) -> str:
+    """'auto' is the host Hungarian on every device of the port: the LAP
+    runs on the host after one copy of the cost tensor, on CPU and CUDA
+    alike."""
+    return "hungarian" if cfg.assigner == "auto" else cfg.assigner
+
+
+def check_training_config(cfg: Mask2FormerConfig) -> None:
+    """Raise ValueError for a training value this port does not run yet,
+    whether or not the JAX package accepts it; the message names the
+    ROADMAP.md item. The knobs of the unported modes (points, focal, the
+    semantic head) are refused too, so that setting one never does nothing.
+    ``check_assigner_capacity`` (``openpvsg_tpu/train/segmenter.py:137``)
+    guards LAPJV's N <= Q and comes with LAPJV."""
+    unported = {
+        "loss_sampling": (cfg.loss_sampling, "dense"),
+        "num_points": (cfg.num_points, 12544),
+        "oversample_ratio": (cfg.oversample_ratio, 3.0),
+        "importance_sample_ratio": (cfg.importance_sample_ratio, 0.75),
+        "assigner": (resolve_assigner(cfg), "hungarian"),
+        "match_downsample": (cfg.match_downsample, 1),
+        "loss_layout": (cfg.loss_layout, "query"),
+        "mask_logits_dtype": (cfg.mask_logits_dtype, "float32"),
+        "split_thing_stuff": (cfg.split_thing_stuff, False),
+        "focal_cls": (cfg.focal_cls, False),
+        "focal_gamma": (cfg.focal_gamma, 2.0),
+        "focal_alpha": (cfg.focal_alpha, 0.25),
+        "with_sem_seg": (cfg.with_sem_seg, False),
+        "sem_seg_weight": (cfg.sem_seg_weight, 1.0),
+        "backbone.dtype": (cfg.backbone.dtype, "float32"),
+    }
+    for name, (value, ported) in unported.items():
+        if value != ported:
+            raise ValueError(
+                f"model.{name}={value!r} is not ported to openpvsg_torch "
+                f"training (only {ported!r}); ROADMAP.md A9c ports it")

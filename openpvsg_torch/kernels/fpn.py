@@ -22,7 +22,8 @@ Every wrapper takes its plain version for CPU tensors and only for them: a
 CUDA tensor launches the kernel or raises. ``fpn_stride4`` on CPU tensors runs
 the unfused module chain (``fpn_stride4_plain``, the pixel decoder's loop at
 ``openpvsg_tpu/models/pixel_decoder.py:245-258``). Inference only: there is
-no gradient.
+no backward, so a CUDA launch raises when grad mode is on and an input or
+weight requires grad (training runs the unfused chain instead).
 
 Layouts are those of the Pallas function: activations NHWC, ``w_lat``
 (Cin, C) or (1, 1, Cin, C), ``w_out`` (3, 3, C, C) HWIO, ``w_mask`` (C, Cout)
@@ -36,7 +37,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from openpvsg_torch.kernels import build
+from openpvsg_torch.kernels import build, refuse_autograd
 from openpvsg_torch.ops.resize import resize_bilinear
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,6 +135,7 @@ def lateral_stats(f0: torch.Tensor, w_lat: torch.Tensor, b_lat: torch.Tensor):
     B, H, W, Cin = f0.shape
     C = w_lat.shape[1]
     dev = f0.device
+    refuse_autograd("lateral_stats", f0, w_lat, b_lat)
     _check("f0", f0, (B, H, W, Cin), dt, dev)
     _check("w_lat", w_lat, (Cin, C), dt, dev)
     _check("b_lat", b_lat, (C,), torch.float32, dev)
@@ -179,6 +181,7 @@ def conv3x3_stats(l_raw, s8, sc1, bi1, w_out, b_out):
     H8, W8 = s8.shape[1:3]
     N = w_out.shape[-1]
     dev = l_raw.device
+    refuse_autograd("conv3x3_stats", l_raw, s8, sc1, bi1, w_out, b_out)
     _check("l_raw", l_raw, (B, H, W, C), dt, dev)
     _check("s8", s8, (B, H8, W8, C), dt, dev)
     _check("sc1", sc1, (B, C), torch.float32, dev)
@@ -222,6 +225,7 @@ def mask_proj(x2, sc2, bi2, w_mask, b_mask):
     B, H, W, C = x2.shape
     Cout = w_mask.shape[1]
     dev = x2.device
+    refuse_autograd("mask_proj", x2, sc2, bi2, w_mask, b_mask)
     _check("x2", x2, (B, H, W, C), dt, dev)
     _check("sc2", sc2, (B, C), torch.float32, dev)
     _check("bi2", bi2, (B, C), torch.float32, dev)
@@ -298,6 +302,7 @@ def fpn_stride4(f0: torch.Tensor, s8: torch.Tensor, p: Dict[str, torch.Tensor],
     CPU tensors the unfused chain."""
     if f0.device.type == "cpu":
         return fpn_stride4_plain(f0, s8, p, num_groups, eps)
+    refuse_autograd("fpn_stride4", f0, s8, *p.values())
     dt = _act_dtype(f0)
     B, H, W, Cin = f0.shape
     C = s8.shape[-1]

@@ -10,7 +10,8 @@ fusion.py rule) and the per-query areas inside ``ori_hw``.
 
 ``fusion_maps`` takes its plain version (upsample then argmax, as
 ``_fusion_reference`` at ``fusion_kernel.py:211`` computes it) for CPU tensors
-and only for them: a CUDA tensor launches the kernel or raises.
+and only for them: a CUDA tensor launches the kernel or raises (also when
+grad mode is on and an input requires grad: the kernel has no backward).
 ``exact_sigmoid_count`` measures how many exact sigmoids the kernel evaluates
 on given inputs; nothing on the main path calls it.
 """
@@ -22,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from openpvsg_torch.kernels import build
+from openpvsg_torch.kernels import build, refuse_autograd
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,6 +103,7 @@ def fusion_maps(mask_low: torch.Tensor, scores: torch.Tensor,
     ori_h, ori_w = int(ori_hw[0]), int(ori_hw[1])
     if mask_low.device.type == "cpu":
         return fusion_maps_plain(mask_low, scores, (ori_h, ori_w))
+    refuse_autograd("fusion_maps", mask_low, scores)
     out = _launch(mask_low, scores, ori_h, ori_w)
     fusion_maps.launches += 1
     return out

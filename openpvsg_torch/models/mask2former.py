@@ -1,13 +1,21 @@
-"""Mask2Former segmenter for inference, the port of
+"""Mask2Former segmenter, the port of
 ``openpvsg_tpu/models/mask2former.py:34-226``.
 
-Backbone -> pixel decoder -> masked-attention head. Every frame runs with
-T=1 (stage 2 stitches frames with MinVIS afterwards), so the head uses the
-2-D sine encoding. In eval the head emits mask logits for the final layer
-only; the intermediate layers need only their attention masks, computed from
-the mask features pre-resized to each level (resize is linear, so this equals
-resizing the full-resolution logits). A query whose mask blocks every token
-attends everywhere (``openpvsg_tpu/models/mask2former.py:129-135``).
+Backbone -> pixel decoder -> masked-attention head. Features carry a time
+axis T; the decoder attends over the flattened (T*h*w) tokens of each level
+with the 2-D sine encoding for T=1 and the 3-D one for clips.
+
+- Inference (``train=False``, stage 2): every frame runs with T=1 (stage 2
+  stitches frames with MinVIS afterwards) and the head emits mask logits for
+  the final layer only; the intermediate layers need only their attention
+  masks, computed from the mask features pre-resized to each level (resize
+  is linear, so this equals resizing the full-resolution logits).
+- Training (``train=True``, stage 1): (B, T) clips, training-mode
+  BatchNorm for 'sync_bn', the unfused stride-4 chain, and mask logits for
+  every layer (deep supervision).
+
+A query whose mask blocks every token attends everywhere
+(``openpvsg_tpu/models/mask2former.py:129-135``).
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import torch.nn.functional as F
 
 from openpvsg_torch.config import Mask2FormerConfig
 from openpvsg_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
-from openpvsg_torch.models.position_encoding import sine_pos_encoding
+from openpvsg_torch.models.position_encoding import (sine_pos_encoding,
+                                                     sine_pos_encoding_3d)
 from openpvsg_torch.models.resnet import ResNet
 from openpvsg_torch.models.transformer_decoder import MaskedDecoderLayer
 from openpvsg_torch.ops.resize import resize_bilinear
@@ -58,24 +67,31 @@ class Mask2FormerHead(nn.Module):
         return self.cls_embed(out), self.mask_embed(out), out
 
     def forward(self, mask_features: torch.Tensor,
-                multi_scale_feats: Sequence[torch.Tensor]):
-        """mask_features (B, H4, W4, C); multi_scale_feats: (B, h_l, w_l, C)
-        for strides [32, 16, 8].
+                multi_scale_feats: Sequence[torch.Tensor],
+                all_layer_masks: bool = False):
+        """mask_features (B, T, H4, W4, C); multi_scale_feats: (B, T, h_l,
+        w_l, C) for strides [32, 16, 8].
 
-        Returns (cls (B, Q, K+1), mask logits (B, Q, H4, W4) float32,
+        Returns (cls (L+1, B, Q, K+1), mask logits (L+1, B, Q, T, H4, W4)
+        float32 — (1, ...) of the final layer unless ``all_layer_masks`` —,
         query_feats (B, Q, C) final decoder-normed queries)."""
-        B, _, _, C = mask_features.shape
+        B, T, H4, W4, C = mask_features.shape
         dtype = mask_features.dtype
         feats_flat: List[torch.Tensor] = []
         pos_flat: List[torch.Tensor] = []
         level_mask_feats: List[torch.Tensor] = []
+        mf_flat = mask_features.reshape(B * T, H4, W4, C)
         for lvl, f in enumerate(multi_scale_feats):
-            _, h, w, _ = f.shape
-            pos = sine_pos_encoding(h, w, num_feats=C // 2, device=f.device)
-            pos_flat.append(pos.reshape(1, h * w, C).to(dtype))
-            feats_flat.append(f.reshape(B, h * w, C) + self.level_embed[lvl])
+            h, w = f.shape[2:4]
+            if T == 1:
+                pos = sine_pos_encoding(h, w, num_feats=C // 2, device=f.device)
+            else:
+                pos = sine_pos_encoding_3d(T, h, w, num_feats=C // 2,
+                                           device=f.device)
+            pos_flat.append(pos.reshape(1, T * h * w, C).to(dtype))
+            feats_flat.append(f.reshape(B, T * h * w, C) + self.level_embed[lvl])
             level_mask_feats.append(
-                resize_bilinear(mask_features, (h, w)).reshape(B, h * w, C)
+                resize_bilinear(mf_flat, (h, w)).reshape(B, T * h * w, C)
                 .float())
 
         Q = self.query_feat.shape[0]
@@ -88,37 +104,66 @@ class Mask2FormerHead(nn.Module):
             attend = logits >= 0.0
             return attend | ~attend.any(dim=-1, keepdim=True)
 
+        def full_masks(membed):
+            return torch.einsum("bqc,bthwc->bqthw", membed.float(),
+                                mask_features.float())
+
         cls, membed, normed = self._head(query)
+        cls_preds, mask_preds = [cls], []
+        if all_layer_masks:
+            mask_preds.append(full_masks(membed))
         for layer in range(self.num_layers):
             lvl = layer % self.num_levels
             query = getattr(self, f"layer_{layer}")(
                 query, query_pos, feats_flat[lvl], pos_flat[lvl],
                 attn_mask_for(membed, lvl))
             cls, membed, normed = self._head(query)
-        masks = torch.einsum("bqc,bhwc->bqhw", membed.float(),
-                             mask_features.float())
-        return cls, masks, normed
+            cls_preds.append(cls)
+            if all_layer_masks:
+                mask_preds.append(full_masks(membed))
+        if not all_layer_masks:
+            mask_preds.append(full_masks(membed))
+        return torch.stack(cls_preds), torch.stack(mask_preds), normed
 
 
 class Mask2Former(nn.Module):
     """Backbone + pixel decoder + transformer head (``backbone``,
-    ``pixel_decoder``, ``head``, as in the flax tree)."""
+    ``pixel_decoder``, ``head``, as in the flax tree). ``train`` selects the
+    training forward, as the flax module's attribute does."""
 
-    def __init__(self, cfg: Mask2FormerConfig):
+    def __init__(self, cfg: Mask2FormerConfig, train: bool = False):
         super().__init__()
         if cfg.backbone.kind != "resnet":
             raise ValueError(f"backbone '{cfg.backbone.kind}' is not ported")
         self.cfg = cfg
+        self.train_mode = train
         self.backbone = ResNet(cfg.backbone.depth, cfg.backbone.norm,
-                               cfg.backbone.out_indices)
-        self.pixel_decoder = MSDeformAttnPixelDecoder(cfg.pixel_decoder)
+                               cfg.backbone.out_indices, train=train)
+        self.pixel_decoder = MSDeformAttnPixelDecoder(cfg.pixel_decoder,
+                                                      train=train)
         self.head = Mask2FormerHead(cfg)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """images: (N, H, W, 3) normalized frames, each run with T=1.
-        Returns (cls (N, Q, K+1), masks (N, Q, H/4, W/4) float32,
-        query (N, Q, C))."""
-        feats = self.backbone(images)
+        """Inference: images (N, H, W, 3) normalized frames, each run with
+        T=1 -> (cls (N, Q, K+1), masks (N, Q, H/4, W/4) float32,
+        query (N, Q, C)).
+
+        Training: images (B, T, H, W, 3) clips -> (cls_preds (L+1, B, Q,
+        K+1), mask_preds (L+1, B, Q, T, H/4, W/4) float32, query_feats
+        (B, Q, C)); the backbone runs on the B*T frames."""
+        if not self.train_mode:
+            images = images[:, None]
+        B, T, H, W, _ = images.shape
+        feats = self.backbone(images.reshape(B * T, H, W, 3))
         mask_features, ms_feats = self.pixel_decoder(feats)
-        return self.head(mask_features, ms_feats)
+
+        def unflatten(f):
+            return f.reshape(B, T, *f.shape[1:])
+
+        cls, masks, query = self.head(
+            unflatten(mask_features), [unflatten(f) for f in ms_feats],
+            all_layer_masks=self.train_mode)
+        if self.train_mode:
+            return cls, masks, query
+        return cls[-1], masks[0, :, :, 0], query

@@ -4,10 +4,14 @@
 The top three backbone scales are projected to ``feat_channels`` by 1x1
 ConvGN (``input_conv_{i}``), run through the axial encoder, and the
 stride-4 chain ``lateral_conv_0`` -> + up2x -> ``output_conv_0`` ->
-``mask_feature`` yields the mask features. That chain is kernel B1
-(``kernels/fpn.py``): the CUDA kernels for CUDA tensors, the unfused module
-chain for CPU tensors. Its weights stay in the ConvGN submodules, so the
-parameter tree is the flax one. Tensors are channels last (B, H, W, C).
+``mask_feature`` yields the mask features. At inference that chain is
+kernel B1 (``kernels/fpn.py``): the CUDA kernels for CUDA tensors, the
+unfused chain ``fpn_stride4_plain`` for CPU tensors. Built with
+``train=True`` the decoder runs ``fpn_stride4_plain`` on every device, as
+the JAX package does with ``fused_fpn=False``
+(``openpvsg_tpu/models/pixel_decoder.py:245-258``): the kernels have no
+backward. Its weights stay in the ConvGN submodules, so the parameter tree
+is the flax one. Tensors are channels last (B, H, W, C).
 """
 from __future__ import annotations
 
@@ -45,8 +49,9 @@ class ConvGN(nn.Module):
 class MSDeformAttnPixelDecoder(nn.Module):
     """Named after the flax module; only ``encoder='axial'`` is ported."""
 
-    def __init__(self, cfg: PixelDecoderConfig):
+    def __init__(self, cfg: PixelDecoderConfig, train: bool = False):
         super().__init__()
+        self.train_mode = train
         if cfg.encoder != "axial":
             raise ValueError(f"pixel decoder encoder '{cfg.encoder}' is not "
                              "ported (only 'axial')")
@@ -93,6 +98,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
             getattr(self, f"input_conv_{i}")(feats[n_in - i - 1])
             for i in range(cfg.num_levels)]
         outs = self.axial_encoder(projs)  # [stride32, stride16, stride8]
-        mask_feature = fpn.fpn_stride4(feats[0], outs[-1], self.fpn_params(),
-                                       num_groups=cfg.num_groups, eps=GN_EPS)
+        chain = fpn.fpn_stride4_plain if self.train_mode else fpn.fpn_stride4
+        mask_feature = chain(feats[0], outs[-1], self.fpn_params(),
+                             num_groups=cfg.num_groups, eps=GN_EPS)
         return mask_feature, outs[:cfg.num_outs]

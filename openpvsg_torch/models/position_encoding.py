@@ -1,8 +1,8 @@
-"""2-D sine positional encoding (mmdet SinePositionalEncoding,
-num_feats=128, normalize=True, all-valid mask), channels last.
-
-Stage 2 runs every frame with T=1, so the 3-D encoding of the JAX package
-(``sine_pos_encoding_3d``) is not ported yet.
+"""Sine positional encodings, channels last: the 2-D one (mmdet
+SinePositionalEncoding, num_feats=128, normalize=True, all-valid mask) that
+every T=1 forward uses, and the 3-D one of the reference's
+SinePositionalEncoding3D for clips (training runs T=2), as in
+``openpvsg_tpu/models/position_encoding.py``.
 """
 from __future__ import annotations
 
@@ -38,3 +38,18 @@ def sine_pos_encoding(h: int, w: int, num_feats: int = 128,
     pos_y = _interleave_sincos(y, num_feats, temperature)
     pos_x = _interleave_sincos(x, num_feats, temperature)
     return torch.cat([pos_y, pos_x], dim=-1)
+
+
+def sine_pos_encoding_3d(t: int, h: int, w: int, num_feats: int = 128,
+                         temperature: float = 10000.0, normalize: bool = True,
+                         scale: float = 2 * math.pi, eps: float = 1e-6,
+                         offset: float = 0.0, device=None) -> torch.Tensor:
+    """-> (T, H, W, 2*num_feats) float32: concat(pos_y, pos_x) + pos_z,
+    where pos_z spans all 2*num_feats channels."""
+    pos2d = sine_pos_encoding(h, w, num_feats, temperature, normalize, scale,
+                              eps, offset, device=device)
+    z = torch.arange(1, t + 1, dtype=torch.float32, device=device)
+    if normalize:
+        z = (z + offset) / (t + eps) * scale
+    pos_z = _interleave_sincos(z, 2 * num_feats, temperature)  # (T, 2F)
+    return pos2d[None, :, :, :] + pos_z[:, None, None, :]

@@ -10,6 +10,11 @@ channels-last memory.
 Norms: 'frozen_bn' and 'sync_bn' both use running statistics at inference
 (eps 1e-5, ``openpvsg_tpu/models/resnet.py:51``); 'folded' is the serving
 form whose BN affines were folded into the convs by ``fold_frozen_bn``.
+With ``train=True``, 'sync_bn' normalizes by the batch statistics over
+(N, H, W) and updates the running statistics as flax does (momentum 0.9,
+the *biased* batch variance); 'frozen_bn' keeps its running statistics in
+training too. One device means no cross-replica reduction (the JAX trainer
+runs ``axis_name=None``).
 """
 from __future__ import annotations
 
@@ -22,36 +27,56 @@ import torch.nn.functional as F
 # 26 = one bottleneck per stage (test/debug scale)
 STAGE_BLOCKS = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax: ra = momentum * ra + (1 - momentum) * batch
 
 
-class FrozenBatchNorm(nn.Module):
-    """BatchNorm with running statistics only (no update counter), so its
-    state dict is exactly the flax ``bn`` scope: scale/bias params plus
-    mean/var batch stats."""
+class BatchNorm(nn.Module):
+    """BatchNorm whose state dict is exactly the flax ``bn`` scope:
+    scale/bias params plus mean/var batch stats (no update counter).
 
-    def __init__(self, channels: int):
+    ``batch_stats=False`` normalizes by the running statistics. With
+    ``batch_stats=True`` it normalizes by the batch's mean and biased
+    variance over (N, H, W) and moves the running statistics toward them.
+    The update is the port's own: torch's would store the unbiased
+    variance (n / (n - 1) times flax's). The biased variance comes back
+    from the normalization's own statistics, so x is reduced once."""
+
+    def __init__(self, channels: int, batch_stats: bool = False):
         super().__init__()
+        self.batch_stats = batch_stats
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=BN_EPS)
+        if not self.batch_stats:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=BN_EPS)
+        # running statistics None: normalize by the batch and return its mean
+        # and 1 / sqrt(biased var + eps), from the one pass over x
+        y, mean, rstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+        with torch.no_grad():
+            var = rstd.pow(-2) - BN_EPS
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        return y
 
 
 class Norm(nn.Module):
-    """frozen_bn | sync_bn (running statistics) | folded (identity)."""
+    """frozen_bn (running statistics) | sync_bn (batch statistics when
+    ``train``) | folded (identity)."""
 
-    def __init__(self, kind: str, channels: int):
+    def __init__(self, kind: str, channels: int, train: bool = False):
         super().__init__()
         if kind not in ("frozen_bn", "sync_bn", "folded"):
             raise ValueError(f"backbone norm '{kind}' is not ported")
         self.kind = kind
         if kind != "folded":
-            self.bn = FrozenBatchNorm(channels)
+            self.bn = BatchNorm(channels,
+                                batch_stats=train and kind == "sync_bn")
 
     def forward(self, x):
         return x if self.kind == "folded" else self.bn(x)
@@ -63,18 +88,18 @@ def _conv(cin, cout, k, stride=1, bias=False):
 
 class Bottleneck(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
-                 norm: str):
+                 norm: str, train: bool = False):
         super().__init__()
         bias = norm == "folded"
         self.conv1 = _conv(cin, planes, 1, bias=bias)
-        self.bn1 = Norm(norm, planes)
+        self.bn1 = Norm(norm, planes, train)
         self.conv2 = _conv(planes, planes, 3, stride, bias=bias)
-        self.bn2 = Norm(norm, planes)
+        self.bn2 = Norm(norm, planes, train)
         self.conv3 = _conv(planes, planes * 4, 1, bias=bias)
-        self.bn3 = Norm(norm, planes * 4)
+        self.bn3 = Norm(norm, planes * 4, train)
         if downsample:
             self.downsample_conv = _conv(cin, planes * 4, 1, stride, bias=bias)
-            self.downsample_bn = Norm(norm, planes * 4)
+            self.downsample_bn = Norm(norm, planes * 4, train)
         self.has_downsample = downsample
 
     def forward(self, x):
@@ -92,7 +117,8 @@ class ResNet(nn.Module):
     256/512/1024/2048), channels last."""
 
     def __init__(self, depth: int = 50, norm: str = "frozen_bn",
-                 out_indices: Tuple[int, ...] = (0, 1, 2, 3)):
+                 out_indices: Tuple[int, ...] = (0, 1, 2, 3),
+                 train: bool = False):
         super().__init__()
         if depth not in STAGE_BLOCKS:
             raise ValueError(f"ResNet depth {depth} is not ported "
@@ -100,7 +126,7 @@ class ResNet(nn.Module):
         self.out_indices = tuple(out_indices)
         bias = norm == "folded"
         self.conv1 = _conv(3, 64, 7, 2, bias=bias)
-        self.bn1 = Norm(norm, 64)
+        self.bn1 = Norm(norm, 64, train)
         self.block_names: List[List[str]] = []
         cin, planes = 64, 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
@@ -109,7 +135,8 @@ class ResNet(nn.Module):
                 name = f"layer{stage + 1}_{b}"
                 stride = 1 if (stage == 0 or b > 0) else 2
                 self.add_module(name, Bottleneck(cin, planes, stride,
-                                                 downsample=b == 0, norm=norm))
+                                                 downsample=b == 0, norm=norm,
+                                                 train=train))
                 cin = planes * 4
                 names.append(name)
             self.block_names.append(names)

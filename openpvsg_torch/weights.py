@@ -1,5 +1,5 @@
-"""Weights for the port: conversion from the JAX package's flax variables,
-and random weights from a seed.
+"""Weights for the port: conversion from and to the JAX package's flax
+variables, and random weights from a seed.
 
 ``from_jax_params`` inverts the layout changes of
 ``openpvsg_tpu/train/checkpoint.py:101-155``: the torch module names are the
@@ -13,11 +13,13 @@ flax scope paths joined by '.', and leaves map as
 Other leaves (``bias``, ``query_feat``, ``level_embed``, ...) keep their
 name. A key the port's model does not have, or a model key the tree does not
 provide, raises, as ``check_no_extra_params`` does for flax.
+``to_jax_params`` is the inverse walk; ``flax_path`` names one key's flax
+leaf (the trainer's parameter groups are defined on those paths).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +63,56 @@ def expected_shapes(cfg: Mask2FormerConfig) -> Dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
+def _check_keys(keys, cfg: Mask2FormerConfig, what: str) -> Dict[str, tuple]:
+    want = expected_shapes(cfg)
+    extra = sorted(set(keys) - set(want))
+    missing = sorted(set(want) - set(keys))
+    problems = []
+    if extra:
+        problems.append(f"{len(extra)} keys the configured model does not "
+                        f"use {extra[:8]}")
+    if missing:
+        problems.append(f"{len(missing)} keys the {what} lacks {missing[:8]}")
+    if problems:
+        raise ValueError("; ".join(problems))
+    return want
+
+
+def flax_path(key: str, ndim: int) -> Tuple[str, Tuple[str, ...]]:
+    """A state-dict key of the port's model -> (flax collection, path of
+    the flax leaf), e.g. ``backbone.bn1.bn.weight`` -> ('params',
+    ('backbone', 'bn1', 'bn', 'scale'))."""
+    *scope, leaf = key.split(".")
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", (*scope, leaf[len("running_"):])
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    return "params", (*scope, leaf)
+
+
+def to_jax_params(state_dict: Mapping[str, torch.Tensor],
+                  cfg: Mask2FormerConfig) -> Dict[str, dict]:
+    """A state dict of ``Mask2Former(cfg)`` -> ``{"params",
+    "batch_stats"}`` nested dicts of float32 numpy arrays in the flax
+    layout (the inverse of ``from_jax_params``); raises on a key the model
+    does not have or lacks."""
+    try:
+        _check_keys(state_dict, cfg, "state dict")
+    except ValueError as e:
+        raise ValueError(f"to_jax_params: {e}") from None
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().float().numpy()
+        coll, path = flax_path(key, arr.ndim)
+        if path[-1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = out[coll]
+        for s in path[:-1]:
+            node = node.setdefault(s, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
 def from_jax_params(variables: Mapping, cfg: Mask2FormerConfig
                     ) -> Dict[str, torch.Tensor]:
     """Flax variables of ``openpvsg_tpu.models.mask2former.Mask2Former``
@@ -74,17 +126,10 @@ def from_jax_params(variables: Mapping, cfg: Mask2FormerConfig
             if key in state:
                 raise ValueError(f"two flax leaves map to '{key}'")
             state[key] = t
-    want = expected_shapes(cfg)
-    extra = sorted(set(state) - set(want))
-    missing = sorted(set(want) - set(state))
-    problems = []
-    if extra:
-        problems.append(f"{len(extra)} keys the configured model does not "
-                        f"use {extra[:8]}")
-    if missing:
-        problems.append(f"{len(missing)} keys the tree lacks {missing[:8]}")
-    if problems:
-        raise ValueError("from_jax_params: " + "; ".join(problems))
+    try:
+        want = _check_keys(state, cfg, "tree")
+    except ValueError as e:
+        raise ValueError(f"from_jax_params: {e}") from None
     bad = [(k, tuple(state[k].shape), s) for k, s in want.items()
            if tuple(state[k].shape) != s]
     if bad:

@@ -19,6 +19,12 @@ this, other, and one JSON line gives every run and each side's median.
 
 With ``--sass`` it instead prints static SASS instruction counts
 (``cuobjdump -sass``) of the fusion kernel's main-path build.
+
+With ``--train`` it instead profiles one stage-1 train step of
+``chip_smoke.py``'s train phase (``mask2former_vps`` at full width, float32,
+TF32 off, the preset's ``samples_per_gpu`` clips of 2 384x480 frames) after
+two warm-up steps: the step's wall time, device busy time and idle share,
+the host LAP's time, the device time by kernel family and the top kernels.
 """
 from __future__ import annotations
 
@@ -39,7 +45,12 @@ FAMILIES = (
     ("fpn_", "B1 fpn (port kernel)"),
     ("fusion_maps", "B2 fusion (port kernel)"),
     ("conv", "convolution (cuDNN)"),
+    ("grad", "convolution (cuDNN)"),
+    ("xmma_gemm", "matmul (cuBLAS)"),
     ("xmma", "convolution (cuDNN)"),
+    ("adam", "optimizer"),
+    ("batch_norm", "batch norm"),
+    ("bn_", "batch norm"),
     ("gemm", "matmul (cuBLAS)"),
     ("cutlass", "matmul (cuBLAS)"),
     ("softmax", "softmax"),
@@ -146,6 +157,59 @@ def family(name: str) -> str:
     return "other"
 
 
+def summarize(torch, prof, wall, head):
+    """Print the device busy time, idle share, time by family and the top
+    kernels of a profiled window of ``wall`` seconds."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    by_family, by_name = {}, {}
+    for e in kernels:
+        fam = family(e.name)
+        by_family[fam] = by_family.get(fam, 0.0) + e.device_time_total
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time_total)
+    print(json.dumps({
+        **head, "wall_s": wall, "kernel_launches": len(kernels),
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall}), flush=True)
+    print(json.dumps({"device_ms_by_family": {
+        k: v / 1e3 for k, v in sorted(by_family.items(),
+                                      key=lambda kv: -kv[1])}}), flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    print(json.dumps({"top_kernels": [
+        {"name": name[:120], "calls": n, "device_ms": t / 1e3}
+        for name, (n, t) in top]}), flush=True)
+
+
+def profile_train(torch, np, seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import train_batch
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    pvsg = mask2former_vps()
+    cfg, clips = pvsg.model, pvsg.train.samples_per_gpu
+    batch = train_batch(np, clips, cfg.num_frames, (360, 480), (384, 480),
+                        20, cfg.num_classes, seed)
+    trainer = SegmenterTrainer(cfg, pvsg.train, steps_per_epoch=1000, seed=seed)
+    for _ in range(2):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {
+        "card": card, "train_step": "mask2former_vps", "dtype": "float32",
+        "clips": clips, "frames": clips * cfg.num_frames,
+        "host_lap_ms": trainer.last_timings["host_lap_s"] * 1e3,
+        "cost_wait_ms": trainer.last_timings["cost_wait_s"] * 1e3})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -155,6 +219,8 @@ def main(argv=None) -> int:
                     help="stage-2 runs per process with --ab")
     ap.add_argument("--sass", action="store_true",
                     help="print the fusion kernel's static SASS counts")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one stage-1 train step instead")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -179,6 +245,8 @@ def main(argv=None) -> int:
     if args.sass:
         print(json.dumps({"card": card.splitlines()[0], **sass_counts(build)}), flush=True)
         return 0
+    if args.train:
+        return profile_train(torch, np, args.seed, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),
@@ -193,27 +261,8 @@ def main(argv=None) -> int:
             run_query_tube_vps(seg, frames, os.path.join(tmp, "run"), window=2)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
-    by_family, by_name = {}, {}
-    for e in kernels:
-        fam = family(e.name)
-        by_family[fam] = by_family.get(fam, 0.0) + e.device_time_total
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.device_time_total)
-    print(json.dumps({
-        "card": card.splitlines()[0], "frames": N_FRAMES,
-        "wall_s": wall, "frames_per_s": N_FRAMES / wall,
-        "kernel_launches": len(kernels), "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall}), flush=True)
-    print(json.dumps({"device_ms_by_family": {
-        k: v / 1e3 for k, v in sorted(by_family.items(),
-                                      key=lambda kv: -kv[1])}}), flush=True)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
-    print(json.dumps({"top_kernels": [
-        {"name": name[:120], "calls": n, "device_ms": t / 1e3}
-        for name, (n, t) in top]}), flush=True)
+    summarize(torch, prof, wall, {"card": card.splitlines()[0], "frames": N_FRAMES,
+                                  "frames_per_s": N_FRAMES / wall})
     return 0
 
 

@@ -284,3 +284,124 @@ def test_model_gpu_path_matches_cpu_path(dev):
     cpu = SegmenterInference(cfg, state, device="cpu").forward_frames(frames)
     for a, b in zip(gpu, cpu):
         _close(a.cpu(), b, 1e-3)
+
+
+def _tiny_train_cfg():
+    from openpvsg_torch.config import (BackboneConfig, Mask2FormerConfig,
+                                       PixelDecoderConfig,
+                                       TransformerDecoderConfig)
+
+    return Mask2FormerConfig(
+        num_things_classes=3, num_stuff_classes=2, num_queries=8,
+        backbone=BackboneConfig(depth=26, norm="sync_bn"),
+        pixel_decoder=PixelDecoderConfig(encoder_layers=1, ffn_channels=64),
+        decoder=TransformerDecoderConfig(num_layers=3, ffn_channels=64))
+
+
+def _train_batch(seed=0, B=2, T=2, H=64, W=64, N=3):
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((B, N, T, H // 4, W // 4), np.uint8)
+    for b in range(B):
+        for j in range(N):  # one band of rows per target
+            masks[b, j, :, 5 * j:5 * j + 4, 2 + b:10 + b] = 1
+    return {"images": rng.integers(0, 255, (B, T, H, W, 3), dtype=np.uint8),
+            "gt_labels": rng.integers(0, 5, (B, N)).astype(np.int32),
+            "gt_masks": masks, "gt_valid": np.ones((B, N), bool)}
+
+
+def _counts():
+    return [fn.launches for fn in fpn.KERNEL_WRAPPERS + fusion.KERNEL_WRAPPERS]
+
+
+def test_train_forward_backward_runs_the_unfused_chain(dev):
+    """Mask2Former(train=True) on the card: the stride-4 chain's weights get
+    gradients, and neither B1 nor B2 launches."""
+    from openpvsg_torch.models.mask2former import Mask2Former
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = _tiny_train_cfg()
+    model = Mask2Former(cfg, train=True)
+    model.load_state_dict(random_state_dict(cfg, 0))
+    model.to(dev)
+    before = _counts()
+    x = torch.randn((2, 2, 64, 64, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    cls, masks, _ = model(x)
+    assert tuple(masks.shape) == (4, 2, 8, 2, 16, 16)
+    (cls.square().mean() + masks.square().mean()).backward()
+    pd = model.pixel_decoder
+    for p in (pd.lateral_conv_0.conv.weight, pd.output_conv_0.conv.weight,
+              pd.mask_feature.weight):
+        assert p.grad is not None and float(p.grad.abs().max()) > 0
+    assert _counts() == before
+
+
+def test_eval_forward_still_launches_b1(dev):
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = _tiny_train_cfg()
+    seg = SegmenterInference(cfg, random_state_dict(cfg, 0), device=dev)
+    before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
+    seg.forward_frames(np.zeros((2, 64, 64, 3), np.uint8))
+    after = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
+    assert all(a == b + 1 for a, b in zip(after, before))
+
+
+def test_kernels_refuse_inputs_that_require_grad(dev):
+    f0, s8, p = _fpn_case(1, 16, 24, 32, 32, 16, torch.float32, dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fpn.fpn_stride4(f0.requires_grad_(), s8, p, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fpn.fpn_stride4(f0.detach(), s8, {k: v.requires_grad_() for k, v in p.items()}, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fpn.lateral_stats(f0.detach(), p["w_lat"], p["b_lat"])
+    low = torch.zeros((1, 4, 8, 10), device=dev, requires_grad=True)
+    scores = torch.zeros((1, 4), device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fusion.fusion_maps(low, scores, (32, 40), (32, 40))
+    with torch.no_grad():  # inference: the same inputs launch
+        fpn.fpn_stride4(f0, s8, p, 4)
+        fusion.fusion_maps(low, scores, (32, 40), (32, 40))
+
+
+def test_trainer_step_on_the_card_matches_the_cpu(dev):
+    """One SegmenterTrainer step of the small model, card against CPU from
+    the same state dict and batch, at the full lr of 1e-4 (warmup_ratio 1):
+    the logs, the assignment and every gradient (1e-2 of its tensor's scale
+    plus 1e-6: float32 gradients of convs feeding a norm are ill-conditioned)
+    agree; and the card's update equals the CPU's update from the card's
+    gradients within 1% of the update taken, beyond one float32 ulp of the
+    parameter (Adam's first step divides each element by its own magnitude,
+    so it is compared from one set of gradients)."""
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = _tiny_train_cfg()
+    state = random_state_dict(cfg, 1)
+    batch = _train_batch()
+    cpu, gpu = (SegmenterTrainer(cfg, TrainConfig(warmup_ratio=1.0),
+                                 steps_per_epoch=10, device=d, state_dict=state)
+                for d in ("cpu", dev))
+    before = _counts()
+    logs = [{k: float(v.detach()) for k, v in tr.loss_and_grads(batch)[1].items()}
+            for tr in (cpu, gpu)]
+    assert _counts() == before
+    np.testing.assert_array_equal(gpu.last_assigned, cpu.last_assigned)
+    for k, v in logs[0].items():
+        assert abs(logs[1][k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    names = [n for n, _ in cpu.model.named_parameters()]
+    p0 = [p.detach().clone() for p in cpu.params]
+    for n, pc, pg in zip(names, cpu.params, gpu.params):
+        gg = pg.grad.cpu()
+        scale = float(pc.grad.abs().max())
+        assert float((gg - pc.grad).abs().max()) <= 1e-2 * scale + 1e-6, n
+        pc.grad.copy_(gg)
+    cpu.apply_updates()
+    gpu.apply_updates()
+    assert cpu.schedule(0) == np.float32(1e-4)
+    for n, b, pc, pg in zip(names, p0, cpu.params, gpu.params):
+        step = float((pc.detach() - b).abs().max())
+        gap = float((pg.detach().cpu() - pc.detach()).abs().max())
+        ulp = float(torch.finfo(torch.float32).eps * b.abs().max())
+        assert gap <= 1e-2 * step + ulp, (n, gap, step)

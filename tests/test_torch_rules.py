@@ -96,6 +96,48 @@ def test_segmenter_defaults_to_the_gpu():
     assert query.shape == (1, 8, 256) and cls.device.type == "cpu"
 
 
+def test_trainer_defaults_to_the_gpu():
+    """A default SegmenterTrainer raises without a GPU instead of training
+    on the CPU; device='cpu' builds."""
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SegmenterTrainer(_tiny_cfg(), TrainConfig())
+    tr = SegmenterTrainer(_tiny_cfg(), TrainConfig(), device="cpu")
+    assert {p.device.type for p in tr.model.parameters()} == {"cpu"}
+
+
+def test_trainer_steps_in_ieee_float32():
+    """The trainer's forward and backward run with TF32 off whatever the
+    caller set, and the caller's settings come back after the step."""
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    def flags():
+        return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+    tr = SegmenterTrainer(_tiny_cfg(), TrainConfig(), device="cpu")
+    seen = []
+    tr.model.register_forward_pre_hook(lambda *_: seen.append(flags()))
+    tr.params[0].register_hook(lambda g: seen.append(flags()))
+    masks = np.zeros((1, 2, 1, 16, 16), np.uint8)
+    masks[0, 0, :, :8], masks[0, 1, :, 8:] = 1, 1
+    batch = {"images": np.zeros((1, 1, 64, 64, 3), np.uint8),
+             "gt_labels": np.array([[1, 3]], np.int32), "gt_masks": masks,
+             "gt_valid": np.ones((1, 2), bool)}
+    saved = flags()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        tr.step(batch)
+        assert seen == [(False, False)] * 2
+        assert flags() == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def test_chip_smoke_refuses_to_run_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
