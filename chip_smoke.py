@@ -65,7 +65,36 @@ Phases, each printing one JSON line:
              both train phases), or a resumed seventh step whose logs differ
              by more than 1e-5 (relative) or whose update differs by more
              than 1e-2 of itself (as in phase 6).
-8. the ``{"kernels": [...]}`` line, then the last line
+8. rel_reference — the relation model at a small width (d 64, 2 heads, a
+             transformer head, 12 tubes and 100 frames padded to the training
+             buckets 20 and 128, 57 relations) on the card and on the CPU
+             from the same weights: the forward's largest gaps on
+             ``pred_matrix``, ``span_pred`` and ``prob`` (bound 1e-4 of each
+             output's scale, at least 1), one train step's loss (1e-5
+             relative) and gradients (1e-3 of each tensor's scale, the key
+             biases aside), and the evaluation's ranked pairs, triplets and
+             span bits: exactly equal or not, and equal wherever adjacent
+             scores (and |span logits|) are more than 1e-4 apart, which must
+             hold. Runs from torch's default TF32 settings.
+9. relations — stages 3-5 at full width, from the seed, with the launch
+             counts of both kernels zeroed first: ``run_rel_set`` on 2
+             synthetic 380-frame 360x640 videos with 20 GT objects and 1-30
+             GT relations each, their GT masks written as mask PNGs and as
+             the predicted ``masks.txt`` with random query features (seconds
+             per video, mask PNGs read included; relations written); ``relation_head('transformer')`` training
+             (d 256, float32, TF32 off in the step) over 64 synthetic
+             relation sets (20-100 tubes, 150-1200 frames, 1-30 relations):
+             2 Adam applies at ``accumulation_steps`` 32 (median step ms,
+             flush ms, videos/s, peak GiB, losses), then a checkpoint round
+             trip whose next step's loss must agree within 1e-5, and one
+             accumulation cycle of ``relation_conv_large``; ``evaluate``
+             (proxy R@K, 100 pairs) over 16 sets and ``evaluate_full`` over
+             the stage-3 videos, written with ``save_metrics_to_csv`` (ms per
+             video, the metric dicts, the CSV). It fails on a non-finite
+             loss, a parameter without a gradient or that did not move, TF32
+             on inside a step, a resumed step that differs, stage 3 writing
+             no relation, or any launch of B1 or B2.
+10. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -792,6 +821,413 @@ def run_train(torch, np, seed, steps=6):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the relation path (stages 3-5)
+# ---------------------------------------------------------------------------
+
+REL_FWD_BOUND = 1e-4    # card against CPU, of the output's scale (at least 1)
+REL_LOSS_BOUND = 1e-5   # relative
+REL_GRAD_BOUND = 1e-3   # of each tensor's scale
+REL_RANK_TOL = 1e-4     # scores closer than this may swap; |logits| under it may flip
+
+
+def relation_sets(np, n_sets, seed, num_relations=57, d=256):
+    """``n_sets`` synthetic relation sets from the seed, made one at a time:
+    (feats (N, T, d) float32, relations), N in 20-100 tubes, T in 150-1200
+    frames, 1-30 GT relations, each with a span of at least 3 frames."""
+    for i in range(n_sets):
+        rng = np.random.default_rng([seed, i])
+        n = int(rng.integers(20, 101))
+        t = int(rng.integers(150, 1201))
+        rels = []
+        for _ in range(int(rng.integers(1, 31))):
+            s, o = (int(v) for v in rng.choice(n, 2, replace=False))
+            a = int(rng.integers(0, t - 3))
+            span = np.zeros(t)
+            span[a:a + int(rng.integers(3, min(t - a, 300) + 1))] = 1
+            rels.append({"subject_index": s, "object_index": o,
+                         "relation": int(rng.integers(0, num_relations)),
+                         "relation_span": span})
+        yield rng.standard_normal((n, t, d), dtype=np.float32), rels
+
+
+def ranking_agreement(np, score_a, score_b, tol):
+    """Whether two score arrays rank their entries the same way: exactly,
+    and wherever adjacent scores of ``score_a`` differ by more than
+    ``tol`` (entries closer than that form a block whose members may come
+    in any order)."""
+    a, b = score_a.ravel(), score_b.ravel()
+    oa, ob = np.argsort(-a, kind="stable"), np.argsort(-b, kind="stable")
+    exact = bool(np.array_equal(oa, ob))
+    cuts = np.flatnonzero(np.diff(a[oa]) < -tol) + 1
+    blocks = zip(np.split(oa, cuts), np.split(ob, cuts))
+    return exact, all(set(x.tolist()) == set(y.tolist()) for x, y in blocks)
+
+
+def check_rel_reference(torch, np, seed):
+    """The relation model at a small width on the card and on the CPU from
+    the same weights: the forward on a padded training batch, one train
+    step's loss and gradients, and the ranked pairs, triplets and span bits
+    of the evaluation."""
+    import random
+
+    from openpvsg_torch.config import RelationHeadConfig
+    from openpvsg_torch.train.relation import (RelationTrainer, build_batch,
+                                               device_batch, subsample_video)
+    from openpvsg_torch.train.segmenter import ieee_float32
+    from openpvsg_torch.weights import random_relation_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = RelationHeadConfig(d_model=64, encoder_heads=2, encoder_ffn=128,
+                             temporal_heads=2, temporal_ffn=128)
+    state = random_relation_state_dict(cfg, seed)
+    rng = np.random.default_rng(seed)
+    n, t = 12, 100  # padded to the training buckets 20 and 128
+    feats = rng.standard_normal((n, t, 64), dtype=np.float32)
+    rels = []
+    for _ in range(8):
+        s, o = (int(v) for v in rng.choice(n, 2, replace=False))
+        span = np.zeros(t)
+        a = int(rng.integers(0, t - 10))
+        span[a:a + 10] = 1
+        rels.append({"subject_index": s, "object_index": o,
+                     "relation": int(rng.integers(0, 57)), "relation_span": span})
+    counts = np.bincount([r["relation"] for r in rels], minlength=57) + 1.0
+    batch = build_batch(*subsample_video(feats, rels, cfg, random.Random(seed)),
+                        cfg, random.Random(seed))
+    trainers = {dev: RelationTrainer(cfg, counts, rng_seed=seed, device=dev,
+                                     state_dict=state) for dev in ("cpu", None)}
+    outs, ranks, grads, losses = {}, {}, {}, {}
+    for dev, tr in trainers.items():
+        b = device_batch(batch, tr.device)
+        with torch.no_grad(), ieee_float32():
+            out = tr.model(b["feats"], tube_valid=b["tube_valid"],
+                           frame_valid=b["frame_valid"])
+            pidx = b["pair_idx"]
+            pair = torch.cat([out["sub_feats"][pidx[:, 0]],
+                              out["obj_feats"][pidx[:, 1]]], -1)
+            span, prob = tr.model.predict(pair, b["frame_valid"])
+            outs[dev] = {"pred_matrix": out["pred_matrix"], "span_pred": span,
+                         "prob": prob}
+            # the evaluation's ranking: every pair of the unpadded video
+            x = torch.from_numpy(feats).to(tr.device)
+            o = tr.model(x)
+            ii, jj = torch.meshgrid(torch.arange(n), torch.arange(n), indexing="ij")
+            keep = (ii != jj).flatten()
+            si, oi = ii.flatten()[keep].to(tr.device), jj.flatten()[keep].to(tr.device)
+            sp, pr = tr.model.predict(torch.cat([o["sub_feats"][si], o["obj_feats"][oi]], -1))
+            ranks[dev] = {"pairs": o["pred_matrix"].cpu().numpy()[~np.eye(n, dtype=bool)],
+                          "triplets": pr.cpu().numpy(), "spans": sp.cpu().numpy()}
+        loss, _, g = tr.loss_and_grads(batch)
+        losses[dev] = loss.item()
+        grads[dev] = {name: x.detach().cpu() for (name, _), x in
+                      zip(tr.model.named_parameters(), g)}
+    fwd = {}
+    for k in outs["cpu"]:
+        ref, got = outs["cpu"][k], outs[None][k].cpu()
+        fwd[k] = {"max_abs_err": max_abs(got, ref), "scale": float(ref.abs().max())}
+    loss_rel = abs(losses[None] - losses["cpu"]) / max(abs(losses["cpu"]), 1e-12)
+    grad_rel, grad_at = 0.0, None
+    for name, ref in grads["cpu"].items():
+        scale = float(ref.abs().max())
+        if key_bias(name) or scale == 0.0:
+            continue
+        rel = float((grads[None][name] - ref).abs().max()) / scale
+        if rel > grad_rel:
+            grad_rel, grad_at = rel, name
+    rc, rg = ranks["cpu"], ranks[None]
+    pairs_exact, pairs_sep = ranking_agreement(np, rc["pairs"], rg["pairs"], REL_RANK_TOL)
+    trip_exact, trip_sep = ranking_agreement(np, rc["triplets"], rg["triplets"], REL_RANK_TOL)
+    sure = np.abs(rc["spans"]) > REL_RANK_TOL
+    spans_sep = bool(np.array_equal((rc["spans"] > 0)[sure], (rg["spans"] > 0)[sure]))
+    row = {"size": "d 64, 2 heads, ffn 128, pair MLP 1024, transformer head, "
+                   f"N {n} (bucket 20), T {t} (bucket 128), 57 relations",
+           "dtype": "float32", "forward": fwd,
+           "loss_cpu": losses["cpu"], "loss_gpu": losses[None],
+           "loss_rel_diff": loss_rel, "max_grad_rel_diff": grad_rel,
+           "max_grad_rel_diff_at": grad_at,
+           "pairs_ranked_equal": pairs_exact, "pairs_equal_where_separated": pairs_sep,
+           "triplets_ranked_equal": trip_exact,
+           "triplets_equal_where_separated": trip_sep,
+           "span_bits_equal": bool(np.array_equal(rc["spans"] > 0, rg["spans"] > 0)),
+           "span_bits_equal_where_separated": spans_sep,
+           "bounds": {"forward": REL_FWD_BOUND, "loss": REL_LOSS_BOUND,
+                      "grad": REL_GRAD_BOUND, "rank_tol": REL_RANK_TOL}}
+    row["ok"] = (all(v["max_abs_err"] <= REL_FWD_BOUND * max(1.0, v["scale"])
+                     for v in fwd.values())
+                 and loss_rel <= REL_LOSS_BOUND and grad_rel <= REL_GRAD_BOUND
+                 and pairs_sep and trip_sep and spans_sep)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "rel_reference", **row})
+    if not row["ok"]:
+        fail(f"the relation model on the card disagrees with the CPU: {row}")
+
+
+def stage3_videos(np, seed, work_dir, n_videos=2, T=380, H=360, W=640, n_obj=20):
+    """Synthetic videos and their oracle stage-2 outputs: each video has
+    ``n_obj`` moving rectangles (random classes, each present in at least
+    half of the frames, later ones drawn over earlier ones) and 1-30 GT
+    relations between objects present together; the GT masks are written as
+    the predicted ``masks.txt`` (track id = object id) with random 256-d
+    query features, as tests/test_end2end.py's oracle does. The GT masks are
+    written as palette PNGs under ``work_dir/data`` in the reference layout.
+    Returns the pvsg.json path and the data directory."""
+    from PIL import Image
+
+    from openpvsg_torch.data import io as data_io
+    from openpvsg_torch.data import rle as rle_codec
+    from openpvsg_torch.tracker.tubes import SimpleTube
+
+    # PVSG's cardinalities: 115 thing and 11 stuff classes, 57 relations
+    anno = {"objects": {"thing": [f"thing{i}" for i in range(115)],
+                        "stuff": [f"stuff{i}" for i in range(11)]},
+            "relations": [f"rel{i}" for i in range(57)]}
+    classes = anno["objects"]["thing"] + anno["objects"]["stuff"]
+    data_dir = os.path.join(work_dir, "data")
+    data, vids = [], []
+    for v in range(n_videos):
+        vid = f"{1000 + v:04d}_smoke{v}"
+        rng = np.random.default_rng([seed, 1000 + v])
+        masks = np.zeros((T, H, W), np.uint8)
+        objects, present = [], {}
+        for oid in range(1, n_obj + 1):
+            a = int(rng.integers(0, T // 2))
+            b = int(rng.integers(a + T // 2, T + 1))
+            h, w = int(rng.integers(H // 10, H // 3)), int(rng.integers(W // 10, W // 3))
+            y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+            dy, dx = (float(d) for d in rng.uniform(-1.0, 1.0, 2))
+            for t in range(a, b):
+                yt = min(max(int(y + (t - a) * dy), 0), H - h)
+                xt = min(max(int(x + (t - a) * dx), 0), W - w)
+                masks[t, yt:yt + h, xt:xt + w] = oid
+            objects.append({"object_id": oid,
+                            "category": classes[int(rng.integers(0, len(classes)))]})
+            present[oid] = (a, b)
+        relations = []
+        for _ in range(int(rng.integers(1, 31))):
+            s, o = (int(i) + 1 for i in rng.choice(n_obj, 2, replace=False))
+            lo, hi = max(present[s][0], present[o][0]), min(present[s][1], present[o][1])
+            if hi - lo < 10:
+                continue
+            start = int(rng.integers(lo, hi - 5))
+            end = int(rng.integers(start + 5, hi))
+            relations.append([s, o, anno["relations"][int(rng.integers(0, 57))],
+                              [[start, end]]])
+        data.append({"video_id": vid, "meta": {"num_frames": T, "height": H, "width": W},
+                     "objects": objects, "relations": relations})
+        vids.append(vid)
+        mask_dir = os.path.join(data_dir, "vidor", "masks", vid)
+        os.makedirs(mask_dir)
+        for t in range(T):
+            Image.fromarray(masks[t]).save(os.path.join(mask_dir, f"{t:04d}.png"))
+        cls_of = {o["object_id"]: classes.index(o["category"]) for o in objects}
+        results, tubes = [], {oid: SimpleTube(oid) for oid in cls_of}
+        for t in range(T):
+            rles, tids = [], []
+            for oid, cid in cls_of.items():
+                m = masks[t] == oid
+                if not m.any():
+                    tubes[oid].append(None)
+                    continue
+                rle = rle_codec.encode(m.astype(np.uint8))
+                rle["class_id"] = cid
+                rles.append(rle)
+                tids.append(oid)
+                tubes[oid].append({"query_feat": rng.standard_normal(256, dtype=np.float32),
+                                   "cls_id": cid})
+            results.append((t + 1, rles, tids))
+        data_io.write_masks_txt(os.path.join(work_dir, vid, "quantitive", "masks.txt"),
+                                results)
+        data_io.save_pickle(os.path.join(work_dir, vid, "query_feats.pickle"),
+                            list(tubes.values()))
+    anno.update(split={"vidor": {"train": [], "val": vids},
+                       "epic_kitchen": {"train": [], "val": []},
+                       "ego4d": {"train": [], "val": []}}, data=data)
+    path = os.path.join(data_dir, "pvsg.json")
+    with open(path, "w") as f:
+        json.dump(anno, f)
+    return path, data_dir
+
+
+def train_relation_head(torch, np, cfg, counts, sets, seed):
+    """Steps ``RelationTrainer`` (on the card) through the sets; returns
+    the trainer and a row: step ms (steps that did not apply Adam), flush
+    ms, videos/s over every step, peak GiB, losses, parameters without a
+    gradient or that did not move, and the TF32 flags inside the steps."""
+    from openpvsg_torch.train.relation import RelationTrainer
+
+    trainer = RelationTrainer(cfg, counts, rng_seed=seed)
+    tf32 = tf32_probe(torch, trainer.model)
+    params0 = [p.detach().clone() for p in trainer.params]
+    had_grad = torch.zeros(len(trainer.params), dtype=torch.bool, device=trainer.device)
+    flush_ms = []
+    flush = trainer.flush
+
+    def timed_flush():
+        nonlocal had_grad
+        had_grad = had_grad | torch.stack([g.abs().amax() > 0 for g in trainer._accum])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flush()
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+
+    trainer.flush = timed_flush
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, shapes = [], [], []
+    for feats, rels in sets:
+        n_flush = len(flush_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.step(feats, rels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if out is None:
+            fail("a relation set had no GT pair")
+        losses.append(out[0])
+        shapes.append(list(feats.shape[:2]))
+        step_ms.append((ms, len(flush_ms) > n_flush))
+    names = [n for n, _ in trainer.model.named_parameters()]
+    moved = torch.stack([(p.detach() != p0).any() for p, p0 in zip(trainer.params, params0)])
+    no_grad = [names[i] for i in torch.nonzero(~had_grad).flatten().tolist()]
+    unmoved = [names[i] for i in torch.nonzero(~moved).flatten().tolist()]
+    plain = [ms for ms, flushed in step_ms if not flushed]
+    total_s = sum(ms for ms, _ in step_ms) / 1e3
+    row = {"videos": len(step_ms), "applies": len(flush_ms),
+           "step_ms_median": statistics.median(plain), "step_ms_max": max(plain),
+           "step_ms_first": step_ms[0][0], "flush_ms": flush_ms,
+           "videos_per_s": len(step_ms) / total_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses_first_last": [losses[0], losses[-1]],
+           "loss_mean_first_half": float(np.mean(losses[:len(losses) // 2])),
+           "loss_mean_second_half": float(np.mean(losses[len(losses) // 2:])),
+           "params": len(names), "params_without_grad": no_grad,
+           "params_unmoved": unmoved, "tf32_in_steps": sorted(set(tf32)),
+           "shapes_n_t": shapes}
+    trainer.flush = flush
+    return trainer, row
+
+
+def run_relations(torch, np, seed, wrappers, n_train=64, n_eval=16):
+    """Stages 3-5 at full width: ``run_rel_set`` on two oracle videos,
+    ``relation_head('transformer')`` training over ``n_train`` synthetic
+    sets plus one accumulation cycle of ``relation_conv_large``, ``evaluate``
+    over ``n_eval`` sets and ``evaluate_full`` over the stage-3 videos."""
+    from openpvsg_torch.config import relation_conv_large, relation_head
+    from openpvsg_torch.data import io as data_io
+    from openpvsg_torch.data.datasets import PVSGRelationDataset
+    from openpvsg_torch.data.pvsg import PVSGRelationAnnotation
+    from openpvsg_torch.eval.rel_eval import K_VALUES, evaluate
+    from openpvsg_torch.eval.rel_full_eval import evaluate_full, save_metrics_to_csv
+    from openpvsg_torch.infer.stages import run_rel_set
+    from openpvsg_torch.train.checkpoint import (load_relation_checkpoint,
+                                                 save_relation_checkpoint)
+    from openpvsg_torch.train.relation import RelationTrainer
+
+    t_phase = time.perf_counter()
+    problems = []
+    with tempfile.TemporaryDirectory() as work:
+        # stage 3
+        t0 = time.perf_counter()
+        anno_file, data_dir = stage3_videos(np, seed, work)
+        setup_s = time.perf_counter() - t0
+        anno = PVSGRelationAnnotation(anno_file, "val")
+        vids = anno.split_video_ids
+        meta = anno[vids[0]]["meta"]
+        stage3 = {"videos": len(vids), "frames": meta["num_frames"],
+                  "frame_hw": [meta["height"], meta["width"]],
+                  "gt_objects": len(anno[vids[0]]["objects"]), "setup_s": setup_s, "seconds_per_video": [],
+                  "gt_relations": [], "relations_written": []}
+        for vid in vids:
+            t0 = time.perf_counter()
+            path = run_rel_set(vid, work, anno, data_dir)
+            stage3["seconds_per_video"].append(time.perf_counter() - t0)
+            stage3["gt_relations"].append(len(anno[vid]["relations"]))
+            stage3["relations_written"].append(len(data_io.load_pickle(path)["relations"]))
+        if not sum(stage3["relations_written"]):
+            problems.append("stage 3 wrote no relation")
+        emit({"phase": "relations", "part": "stage3", **stage3})
+
+        # stage 4
+        cfg = relation_head("transformer").relation
+        rel_of = [[r["relation"] for r in rels] for _, rels in relation_sets(np, n_train, seed)]
+        counts = np.bincount(np.concatenate(rel_of), minlength=cfg.num_relations) + 1.0
+        trainer, train = train_relation_head(
+            torch, np, cfg, counts, relation_sets(np, n_train, seed), seed)
+        # checkpoint round trip: the next step from a reloaded trainer
+        feats, rels = next(relation_sets(np, 1, seed))
+        path = os.path.join(work, "rel.pt")
+        save_relation_checkpoint(path, trainer)
+        loss_next = trainer.step(feats, rels)[0]
+        resumed = RelationTrainer(cfg, counts, rng_seed=seed + 1)
+        load_relation_checkpoint(path, resumed)
+        loss_resumed = resumed.step(feats, rels)[0]
+        del resumed
+        train.update(next_loss=loss_next, next_loss_resumed=loss_resumed,
+                     next_loss_rel_diff=abs(loss_resumed - loss_next) / abs(loss_next))
+        emit({"phase": "relations", "part": "train", "config": "relation_transformer",
+              "dtype": "float32", "d_model": cfg.d_model,
+              "accumulation_steps": cfg.accumulation_steps, **train})
+        large_cfg = relation_conv_large().relation
+        large, train_large = train_relation_head(
+            torch, np, large_cfg, counts,
+            relation_sets(np, large_cfg.accumulation_steps, seed), seed)
+        del large
+        emit({"phase": "relations", "part": "train", "config": "relation_conv_large",
+              "dtype": "float32", **train_large})
+        for name, row in (("transformer", train), ("conv_large", train_large)):
+            if not all(np.isfinite(row["losses_first_last"])):
+                problems.append(f"{name}: a loss is not finite")
+            if row["params_without_grad"] or row["params_unmoved"]:
+                problems.append(f"{name}: parameters without a gradient "
+                                f"{row['params_without_grad'][:4]} or unmoved "
+                                f"{row['params_unmoved'][:4]}")
+            if row["tf32_in_steps"] != [(False, False)]:
+                problems.append(f"{name}: TF32 on inside a step {row['tf32_in_steps']}")
+        if train["applies"] != n_train // cfg.accumulation_steps:
+            problems.append(f"{train['applies']} Adam applies")
+        if train["next_loss_rel_diff"] > 1e-5:
+            problems.append("the resumed step's loss differs")
+
+        # stage 5
+        model = trainer.model
+        items = [{"feats": f, "relations": r} for f, r in relation_sets(np, n_eval, seed)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proxy = evaluate(model, items, 100, anno.relations)
+        proxy_s = time.perf_counter() - t0
+        del items
+        t0 = time.perf_counter()
+        ds = PVSGRelationDataset(anno_file, "val", work, return_mask=True)
+        full_items = [ds[i] for i in range(len(ds))]
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = evaluate_full(model, full_items, anno, data_dir, num_top_pairs=100)
+        full_s = time.perf_counter() - t0
+        csv_path = os.path.join(work, "metrics.csv")
+        save_metrics_to_csv(full["metrics"], [proxy["pair_recall_20"]], K_VALUES,
+                            csv_path, "relation_transformer")
+        with open(csv_path) as f:
+            csv_text = f.read()
+        emit({"phase": "relations", "part": "eval", "proxy_videos": n_eval,
+              "proxy_ms_per_video": proxy_s * 1e3 / n_eval, "proxy": proxy,
+              "full_videos": len(full_items), "full_load_s": load_s,
+              "full_ms_per_video": full_s * 1e3 / len(full_items), "full": full,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "csv": csv_text})
+        if not all(np.isfinite(v) for k in K_VALUES for v in proxy[k].values()):
+            problems.append("proxy metrics not finite")
+    launches = launch_counts(wrappers)
+    row = {"launches": launches, "seconds": time.perf_counter() - t_phase,
+           "problems": problems, "ok": not problems and not any(launches.values())}
+    emit({"phase": "relations", "part": "summary", **row})
+    if any(launches.values()):
+        fail(f"the relation path launched a kernel of the inference path: {launches}")
+    if problems:
+        fail("relations: " + "; ".join(problems))
+    return train, train_large
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -869,6 +1305,13 @@ def main(argv=None) -> int:
     emit({"phase": "train_launches", "launches": during})
     if any(during.values()):
         fail(f"training launched a kernel of the inference path: {during}")
+
+    # 8-9. the relation path, from torch's default TF32 settings as well;
+    # the counts start at 0 and neither B1 nor B2 may launch
+    for fn in wrappers:
+        fn.launches = 0
+    check_rel_reference(torch, np, args.seed)
+    run_relations(torch, np, args.seed, wrappers)
 
     # 8. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",

@@ -5,13 +5,20 @@ It mirrors the subpackage layout of ``openpvsg_tpu`` so each module's
 counterpart is found by its path:
 
 - ``openpvsg_torch.models``  — the Mask2Former VPS segmenter (ResNet, axial
-  pixel decoder, masked-attention decoder) and panoptic fusion.
+  pixel decoder, masked-attention decoder), panoptic fusion, and the
+  relation head (``models.relation``: object encoders, pair proposal, four
+  temporal heads, losses, pair and target helpers).
 - ``openpvsg_torch.kernels`` — hand-written CUDA kernels for Hopper
   (``csrc/*.cu``) with their plain-PyTorch versions, bound through ctypes.
-- ``openpvsg_torch.infer``   — segmenter inference and the stage-2 VPS runner.
-- ``openpvsg_torch.train``   — stage-1 segmenter training: Hungarian
-  assigner, dense loss, optimizer recipe, trainer, checkpoints.
-- ``openpvsg_torch.data``    — RLE codec, stage-boundary files, frame loading.
+- ``openpvsg_torch.infer``   — segmenter inference, the stage-2 VPS runner
+  and stage 3 (``run_rel_set``).
+- ``openpvsg_torch.train``   — stage-1 segmenter training (Hungarian
+  assigner, dense loss, optimizer recipe, trainer) and stage-4 relation-head
+  training, with checkpoints of both trainers.
+- ``openpvsg_torch.eval``    — stage 3's tube matching and stage 5's R@K /
+  mR@K evaluation (proxy and mask-grounded).
+- ``openpvsg_torch.data``    — RLE codec, stage-boundary files, frame and mask
+  loading, pvsg.json accessors, the relation dataset.
 - ``openpvsg_torch.tracker`` — query-feature tubes.
 - ``openpvsg_torch.native``  — ctypes binding of ``native/pvsg_native.cpp``.
 

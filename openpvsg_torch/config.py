@@ -1,11 +1,13 @@
-"""Segmenter configuration: the ``Mask2FormerConfig`` family, the
-segmenter's ``TrainConfig`` and the ``mask2former_vps`` preset.
+"""Configuration: the ``Mask2FormerConfig`` family, the segmenter's
+``TrainConfig``, the relation head's ``RelationHeadConfig`` and their
+presets (``mask2former_vps``, ``relation_head``, ``relation_conv_interact``,
+``relation_conv_large``).
 
-The port's own copy of the inference and stage-1 training fields of
-``openpvsg_tpu.config`` (same names, same defaults), so a configuration
-reads the same in both packages. Tracker, relation and data settings, and
-the training CLI's fields (epochs, seed, checkpoint and log intervals),
-are not ported yet. ``check_training_config`` refuses the training values
+The port's own copy of the inference, stage-1 training and relation-head
+fields of ``openpvsg_tpu.config`` (same names, same defaults), so a
+configuration reads the same in both packages. Tracker and data settings,
+and the segmenter training CLI's fields (epochs, seed, checkpoint and log
+intervals), are not ported yet. ``check_training_config`` refuses the training values
 this port does not run yet, naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Tuple
 
-from openpvsg_torch import NUM_STUFF_CLASSES, NUM_THING_CLASSES
+from openpvsg_torch import NUM_RELATIONS, NUM_STUFF_CLASSES, NUM_THING_CLASSES
 
 
 @dataclass(frozen=True)
@@ -114,9 +116,39 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class RelationHeadConfig:
+    """Relation-head hyperparameters (reference: tools/rel_train.py:38-97).
+    The capacity knobs default to the reference's fixed values: encoders
+    d 256, 8 heads, ffn 512, 2 layers; temporal transformer 4 heads, ffn
+    512, 1 layer; conv kernel 5."""
+    model_name: str = "transformer"  # vanilla | filter | conv | transformer
+    d_model: int = 256
+    encoder_layers: int = 2
+    encoder_heads: int = 8
+    encoder_ffn: int = 512
+    temporal_layers: int = 1
+    temporal_heads: int = 4
+    temporal_ffn: int = 512
+    num_relations: int = NUM_RELATIONS
+    num_top_pairs: int = 100
+    max_tubes: int = 100
+    max_frames: int = 900
+    conv_kernel: int = 5
+    # beyond the reference: feed [s, o, s-o, s*o] (not just [s, o]) to the
+    # temporal model (``RelationModel.pair_interaction``)
+    pair_interaction: bool = False
+    # training
+    lr: float = 1e-4
+    epochs: int = 100
+    accumulation_steps: int = 32
+    loss_prob_weight: float = 5.0
+
+
+@dataclass(frozen=True)
 class PVSGConfig:
     name: str = "mask2former_ips"
     model: Mask2FormerConfig = field(default_factory=Mask2FormerConfig)
+    relation: RelationHeadConfig = field(default_factory=RelationHeadConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
@@ -130,6 +162,36 @@ def mask2former_vps() -> PVSGConfig:
                                 backbone=BackboneConfig(norm="sync_bn")),
         train=TrainConfig(samples_per_gpu=16),
     )
+
+
+def relation_head(model_name: str = "transformer") -> PVSGConfig:
+    """The reference's relation heads: 'vanilla', 'filter', 'conv' or
+    'transformer' (the reference's default) at its fixed widths."""
+    return PVSGConfig(name=f"relation_{model_name}",
+                      relation=RelationHeadConfig(model_name=model_name))
+
+
+def relation_conv_interact() -> PVSGConfig:
+    """The capacity study's winning cell: the temporal-conv head with the
+    pair-interaction input and larger encoders and temporal model."""
+    return PVSGConfig(
+        name="relation_conv_interact",
+        relation=RelationHeadConfig(
+            model_name="conv", pair_interaction=True,
+            encoder_layers=3, encoder_ffn=1024,
+            temporal_layers=2, temporal_heads=8, temporal_ffn=1024))
+
+
+def relation_conv_large() -> PVSGConfig:
+    """``relation_conv_interact``'s capacity without the pair-interaction
+    input: the head to prefer when each predicate has plenty of training
+    data."""
+    return PVSGConfig(
+        name="relation_conv_large",
+        relation=RelationHeadConfig(
+            model_name="conv",
+            encoder_layers=3, encoder_ffn=1024,
+            temporal_layers=2, temporal_heads=8, temporal_ffn=1024))
 
 
 def resolve_assigner(cfg: Mask2FormerConfig) -> str:

@@ -1,4 +1,5 @@
-"""Host half of the test-time frame pipeline: decode and pad geometry.
+"""Host half of the test-time frame pipeline: decode frames and GT masks,
+and pad geometry.
 Normalization and padding themselves run inside the segmenter's forward
 (``infer/segmenter.py``), so only uint8 frames cross to the device."""
 from __future__ import annotations
@@ -15,6 +16,15 @@ def load_frame(path: str) -> np.ndarray:
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def load_mask(path: str) -> np.ndarray:
+    """Decode a palette mask PNG to its object-id map (H, W) int32. Pillow
+    is imported here, as in ``load_frame``."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im).astype(np.int32)
 
 
 def pad_to_divisor(h: int, w: int, divisor: int = 32) -> Tuple[int, int]:

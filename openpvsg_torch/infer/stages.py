@@ -1,20 +1,31 @@
-"""Stage 2 (VPS) runner: windowed MinVIS inference over one video, tube
-identity from panoptic segment ids -> ``{save_root}/quantitive/masks.txt``
-and ``{save_root}/query_feats.pickle``. The port of
-``openpvsg_tpu/infer/stages.py:164 run_query_tube_vps`` (reference:
-tools/prepare_query_tube_vps.py + concat_seq)."""
+"""Stage runners of the file-mediated cascade, ports of
+``openpvsg_tpu/infer/stages.py``:
+
+  stage 2 VPS: ``run_query_tube_vps`` — windowed MinVIS inference over one
+               video, tube identity from panoptic segment ids ->
+               ``{save_root}/quantitive/masks.txt`` and
+               ``{save_root}/query_feats.pickle`` (reference:
+               tools/prepare_query_tube_vps.py + concat_seq)
+  stage 3:     ``run_rel_set`` — predicted-tube / GT matching ->
+               ``{work_dir}/{vid}/relations.pickle`` (reference:
+               tools/prepare_rel_set.py)
+"""
 from __future__ import annotations
 
 import os
 from collections import deque
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from openpvsg_torch import INSTANCE_OFFSET
 from openpvsg_torch.data import io as data_io
 from openpvsg_torch.data import rle as rle_codec
-from openpvsg_torch.data.pipeline import load_frame
+from openpvsg_torch.data.pipeline import load_frame, load_mask
+from openpvsg_torch.data.pvsg import PVSGRelationAnnotation, frame_paths
+from openpvsg_torch.eval.relation_matching import (
+    compact_matching_dict, match_gt_tubes, process_feats_and_relations,
+    translate_gt_relations)
 from openpvsg_torch.infer.segmenter import SegmenterInference
 from openpvsg_torch.tracker.tubes import SimpleTube
 
@@ -92,3 +103,36 @@ def run_query_tube_vps(
         tubes.append(tube)
     data_io.save_pickle(os.path.join(save_root, "query_feats.pickle"), tubes)
     return len(tubes)
+
+
+def run_rel_set(
+    vid: str,
+    work_dir: str,
+    anno: PVSGRelationAnnotation,
+    data_dir: str,
+) -> Optional[str]:
+    """Stage 3 for one video: masks.txt + query_feats.pickle + the GT mask
+    PNGs under ``data_dir`` -> relations.pickle; returns its path, or None
+    when the video has no predicted tube (reference:
+    tools/prepare_rel_set.py:23-50)."""
+    save_path = os.path.join(work_dir, vid, "relations.pickle")
+    pred_tubes = data_io.get_pred_mask_tubes(
+        os.path.join(work_dir, vid, "quantitive", "masks.txt"))
+    if not pred_tubes:
+        return None
+
+    gt_pan = np.stack([load_mask(p) for p in frame_paths(data_dir, vid, "masks")])
+    info = anno[vid]
+
+    matching = match_gt_tubes(gt_pan, info["objects"], pred_tubes)
+    matching = compact_matching_dict(matching)
+    translated = translate_gt_relations(matching, info["relations"])
+
+    qf_tubes = data_io.load_pickle(
+        os.path.join(work_dir, vid, "query_feats.pickle"))
+    pred_feat_tubes = {t.track_id: t.qf_tube for t in qf_tubes}
+    if not pred_feat_tubes:
+        return None
+    payload = process_feats_and_relations(translated, pred_feat_tubes)
+    data_io.save_pickle(save_path, payload)
+    return save_path

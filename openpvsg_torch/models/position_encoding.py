@@ -1,7 +1,8 @@
 """Sine positional encodings, channels last: the 2-D one (mmdet
 SinePositionalEncoding, num_feats=128, normalize=True, all-valid mask) that
-every T=1 forward uses, and the 3-D one of the reference's
-SinePositionalEncoding3D for clips (training runs T=2), as in
+every T=1 forward uses, the 3-D one of the reference's
+SinePositionalEncoding3D for clips (training runs T=2), and the 1-D one of
+the relation head's temporal transformer, as in
 ``openpvsg_tpu/models/position_encoding.py``.
 """
 from __future__ import annotations
@@ -53,3 +54,17 @@ def sine_pos_encoding_3d(t: int, h: int, w: int, num_feats: int = 128,
         z = (z + offset) / (t + eps) * scale
     pos_z = _interleave_sincos(z, 2 * num_feats, temperature)  # (T, 2F)
     return pos2d[None, :, :, :] + pos_z[:, None, None, :]
+
+
+def sine_embed_1d(length: int, dim: int, temperature: float = 10000.0,
+                  device=None) -> torch.Tensor:
+    """Classic unnormalized transformer encoding over positions
+    0..length-1 -> (length, dim) float32 (reference:
+    models/relation_head/transformer.py:7-30)."""
+    position = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(temperature) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div[: (dim + 1) // 2])
+    return pe

@@ -1,6 +1,7 @@
 """ctypes binding of the in-repo C++ host library (``native/pvsg_native.cpp``):
-the RLE encoder behind ``masks.txt`` and the rectangular Hungarian solver
-behind the MinVIS stitch.
+the RLE codec of ``masks.txt`` (encode, decode, area, IoU, string <-> run
+counts), the rectangular Hungarian solver behind the MinVIS stitch, and the
+one-pass (gt, pred) IoU matrix of stage 3's tube matching.
 
 The library is compiled with g++ into the port's own build directory
 (``openpvsg_torch/build/native/``) at first use. Sharing the C++ source with
@@ -69,10 +70,25 @@ def get_lib():
         except OSError:
             _build_failed = True
             return None
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        i32p = ctypes.POINTER(ctypes.c_int32)
         lib.rle_encode_to_string.restype = ctypes.c_int64
         lib.rle_encode_to_string.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_char_p]
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p]
+        lib.rle_decode_from_string.restype = None
+        lib.rle_decode_from_string.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, u8p]
+        lib.rle_area_from_string.restype = ctypes.c_int64
+        lib.rle_area_from_string.argtypes = [ctypes.c_char_p]
+        lib.rle_iou_from_strings.restype = ctypes.c_double
+        lib.rle_iou_from_strings.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.rle_string_to_counts.restype = ctypes.c_int64
+        lib.rle_string_to_counts.argtypes = [ctypes.c_char_p, u32p]
+        lib.pairwise_mask_iou.restype = None
+        lib.pairwise_mask_iou.argtypes = [
+            i32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_double)]
         lib.hungarian.restype = ctypes.c_int
         lib.hungarian.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
@@ -101,3 +117,34 @@ def linear_sum_assignment(cost: np.ndarray):
     import scipy.optimize
 
     return scipy.optimize.linear_sum_assignment(cost)
+
+
+def pairwise_mask_iou(gt: np.ndarray, pred: np.ndarray, n_gt: int,
+                      n_pred: int) -> np.ndarray:
+    """(n_gt, n_pred) float64 IoU of every (gt label, pred label) pair of
+    two dense-id label maps of one size (-1 = background): one pass over
+    the pixels in C++, or a joint histogram in numpy that gives the same
+    bits (int64 counts, one float64 division)."""
+    gt = np.ascontiguousarray(gt, dtype=np.int32).ravel()
+    pred = np.ascontiguousarray(pred, dtype=np.int32).ravel()
+    if gt.size != pred.size:
+        raise ValueError(f"label maps of {gt.size} and {pred.size} pixels")
+    out = np.zeros((n_gt, n_pred), dtype=np.float64)
+    if n_gt == 0 or n_pred == 0:
+        return out
+    lib = get_lib()
+    if lib is not None:
+        lib.pairwise_mask_iou(
+            gt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            pred.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            gt.size, n_gt, n_pred,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        return out
+    valid = (gt >= 0) & (pred >= 0)
+    joint = gt[valid].astype(np.int64) * n_pred + pred[valid]
+    inter = np.bincount(joint, minlength=n_gt * n_pred).reshape(n_gt, n_pred)
+    ga = np.bincount(gt[gt >= 0], minlength=n_gt)[:, None]
+    pa = np.bincount(pred[pred >= 0], minlength=n_pred)[None, :]
+    union = ga + pa - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, 0.0)

@@ -1,6 +1,9 @@
-"""Checkpoints of a ``SegmenterTrainer``: the model's state dict (BN running
-statistics included), the optimizer's state and the step count, written with
-``torch.save`` and read back with ``torch.load(weights_only=True)``.
+"""Checkpoints of a ``SegmenterTrainer`` (the model's state dict with its BN
+running statistics, the optimizer's state and the step count) and of a
+``RelationTrainer`` (the model's state dict, Adam's state, the gradient
+accumulator and its count, and the subsampling ``random.Random`` state),
+written with ``torch.save`` and read back with
+``torch.load(weights_only=True)``.
 
 The format is the port's own. A trainer resumed from a checkpoint takes the
 same next step, bit for bit on the CPU, as one that was never interrupted.
@@ -32,3 +35,26 @@ def load_checkpoint(path: str, trainer) -> int:
     trainer.optimizer.load_state_dict(state["optimizer"])
     trainer.step_count = int(state["step"])
     return trainer.step_count
+
+
+def save_relation_checkpoint(path: str, trainer) -> None:
+    """Write a ``RelationTrainer``'s state to ``path`` (through a temporary
+    file)."""
+    tmp = f"{path}.tmp"
+    torch.save({"model": trainer.model.state_dict(),
+                "optimizer": trainer.optimizer.state_dict(),
+                "accum": trainer._accum,
+                "accum_count": trainer._accum_count,
+                "rng": trainer.rng.getstate()}, tmp)
+    os.replace(tmp, path)
+
+
+def load_relation_checkpoint(path: str, trainer) -> None:
+    """Restore a ``RelationTrainer`` built with the same configuration."""
+    state = torch.load(path, map_location=trainer.device, weights_only=True)
+    trainer.model.load_state_dict(state["model"], strict=True)
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer._accum = state["accum"]
+    trainer._accum_count = int(state["accum_count"])
+    version, internal, gauss = state["rng"]
+    trainer.rng.setstate((version, tuple(internal), gauss))

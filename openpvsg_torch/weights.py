@@ -15,6 +15,12 @@ name. A key the port's model does not have, or a model key the tree does not
 provide, raises, as ``check_no_extra_params`` does for flax.
 ``to_jax_params`` is the inverse walk; ``flax_path`` names one key's flax
 leaf (the trainer's parameter groups are defined on those paths).
+
+``relation_from_jax_params`` / ``relation_to_jax_params`` make the same walk
+for the relation head (``openpvsg_tpu.models.relation.heads.RelationModel``),
+whose 1-D convs also map ``kernel`` (k, in, out) -> ``weight`` (out, in, k),
+and whose pair proposal keeps its raw ``fc1_kernel`` (2D, H) and
+``fc1_bias`` in the flax layout (their names are not ``kernel``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from openpvsg_torch.config import Mask2FormerConfig
+from openpvsg_torch.config import Mask2FormerConfig, RelationHeadConfig
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
@@ -44,6 +50,8 @@ def _convert_leaf(path, value) -> tuple:
         leaf = "weight"
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
         elif arr.ndim == 2:
             arr = arr.T
         else:
@@ -51,6 +59,25 @@ def _convert_leaf(path, value) -> tuple:
     else:
         leaf = _RENAME.get(leaf, leaf)
     return ".".join((*scope, leaf)), torch.from_numpy(np.array(arr, copy=True))
+
+
+def _to_flax_leaf(key: str, t: torch.Tensor):
+    """The inverse of ``_convert_leaf``: (flax collection, path, array)."""
+    arr = t.detach().cpu().float().numpy()
+    coll, path = flax_path(key, arr.ndim)
+    if path[-1] == "kernel":
+        arr = arr.transpose({4: (2, 3, 1, 0), 3: (2, 1, 0), 2: (1, 0)}[arr.ndim])
+    return coll, path, np.ascontiguousarray(arr)
+
+
+def _nest(leaves) -> Dict[str, dict]:
+    out: Dict[str, dict] = {}
+    for coll, path, arr in leaves:
+        node = out.setdefault(coll, {})
+        for s_ in path[:-1]:
+            node = node.setdefault(s_, {})
+        node[path[-1]] = arr
+    return out
 
 
 def expected_shapes(cfg: Mask2FormerConfig) -> Dict[str, tuple]:
@@ -63,8 +90,7 @@ def expected_shapes(cfg: Mask2FormerConfig) -> Dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def _check_keys(keys, cfg: Mask2FormerConfig, what: str) -> Dict[str, tuple]:
-    want = expected_shapes(cfg)
+def _check_keys(keys, want: Dict[str, tuple], what: str) -> Dict[str, tuple]:
     extra = sorted(set(keys) - set(want))
     missing = sorted(set(want) - set(keys))
     problems = []
@@ -97,20 +123,29 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor],
     layout (the inverse of ``from_jax_params``); raises on a key the model
     does not have or lacks."""
     try:
-        _check_keys(state_dict, cfg, "state dict")
+        _check_keys(state_dict, expected_shapes(cfg), "state dict")
     except ValueError as e:
         raise ValueError(f"to_jax_params: {e}") from None
-    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    for key, t in state_dict.items():
-        arr = t.detach().cpu().float().numpy()
-        coll, path = flax_path(key, arr.ndim)
-        if path[-1] == "kernel":
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        node = out[coll]
-        for s in path[:-1]:
-            node = node.setdefault(s, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
-    return out
+    return {"params": {}, "batch_stats": {},
+            **_nest(_to_flax_leaf(k, t) for k, t in state_dict.items())}
+
+
+def _from_flax(leaves, want: Dict[str, tuple], fn: str) -> Dict[str, torch.Tensor]:
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in leaves:
+        key, t = _convert_leaf(path, value)
+        if key in state:
+            raise ValueError(f"two flax leaves map to '{key}'")
+        state[key] = t
+    try:
+        _check_keys(state, want, "tree")
+    except ValueError as e:
+        raise ValueError(f"{fn}: {e}") from None
+    bad = [(k, tuple(state[k].shape), s) for k, s in want.items()
+           if tuple(state[k].shape) != s]
+    if bad:
+        raise ValueError(f"{fn}: shape mismatches {bad[:8]}")
+    return state
 
 
 def from_jax_params(variables: Mapping, cfg: Mask2FormerConfig
@@ -119,22 +154,9 @@ def from_jax_params(variables: Mapping, cfg: Mask2FormerConfig
     (``params``, plus ``batch_stats`` when present; leaves are anything
     numpy can read) -> a float32 state dict for
     ``openpvsg_torch.models.mask2former.Mask2Former(cfg)``."""
-    state: Dict[str, torch.Tensor] = {}
-    for coll in ("params", "batch_stats"):
-        for path, value in _flatten(variables.get(coll, {})):
-            key, t = _convert_leaf(path, value)
-            if key in state:
-                raise ValueError(f"two flax leaves map to '{key}'")
-            state[key] = t
-    try:
-        want = _check_keys(state, cfg, "tree")
-    except ValueError as e:
-        raise ValueError(f"from_jax_params: {e}") from None
-    bad = [(k, tuple(state[k].shape), s) for k, s in want.items()
-           if tuple(state[k].shape) != s]
-    if bad:
-        raise ValueError(f"from_jax_params: shape mismatches {bad[:8]}")
-    return state
+    leaves = [leaf for coll in ("params", "batch_stats")
+              for leaf in _flatten(variables.get(coll, {}))]
+    return _from_flax(leaves, expected_shapes(cfg), "from_jax_params")
 
 
 def random_state_dict(cfg: Mask2FormerConfig, seed: int
@@ -157,5 +179,58 @@ def random_state_dict(cfg: Mask2FormerConfig, seed: int
             t = torch.zeros(shape)
         else:  # query_feat, query_embed, level_embed
             t = torch.randn(shape, generator=gen)
+        out[key] = t
+    return out
+
+
+def relation_expected_shapes(cfg: RelationHeadConfig) -> Dict[str, tuple]:
+    """{state-dict key: shape} of ``RelationModel.from_config(cfg)``, built
+    on the meta device."""
+    from openpvsg_torch.models.relation.heads import RelationModel
+
+    with torch.device("meta"):
+        model = RelationModel.from_config(cfg)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def relation_from_jax_params(params: Mapping, cfg: RelationHeadConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """The flax ``params`` of ``openpvsg_tpu``'s ``RelationModel`` (leaves
+    anything numpy can read) -> a float32 state dict of the port's
+    ``RelationModel.from_config(cfg)``; raises on a key missing or left
+    over and on a shape that does not fit."""
+    return _from_flax(_flatten(params), relation_expected_shapes(cfg),
+                      "relation_from_jax_params")
+
+
+def relation_to_jax_params(state_dict: Mapping[str, torch.Tensor],
+                           cfg: RelationHeadConfig) -> Dict[str, dict]:
+    """The inverse of ``relation_from_jax_params``: a state dict of the
+    port's ``RelationModel`` -> nested flax ``params`` of float32 numpy
+    arrays."""
+    try:
+        _check_keys(state_dict, relation_expected_shapes(cfg), "state dict")
+    except ValueError as e:
+        raise ValueError(f"relation_to_jax_params: {e}") from None
+    return _nest(_to_flax_leaf(k, t) for k, t in state_dict.items())["params"]
+
+
+def random_relation_state_dict(cfg: RelationHeadConfig, seed: int
+                               ) -> Dict[str, torch.Tensor]:
+    """Random float32 weights for ``RelationModel.from_config(cfg)`` from an
+    explicit ``torch.Generator``, as flax initializes them in scale:
+    weights ~ N(0, 1/fan_in), biases 0, LayerNorm scales 1."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, shape in relation_expected_shapes(cfg).items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "fc1_kernel":  # flax layout (in, out)
+            t = torch.randn(shape, generator=gen) / math.sqrt(shape[0])
+        elif leaf == "weight" and len(shape) >= 2:
+            t = torch.randn(shape, generator=gen) / math.sqrt(math.prod(shape[1:]))
+        elif leaf == "weight":
+            t = torch.ones(shape)
+        else:
+            t = torch.zeros(shape)
         out[key] = t
     return out

@@ -25,6 +25,15 @@ With ``--train`` it instead profiles one stage-1 train step of
 TF32 off, the preset's ``samples_per_gpu`` clips of 2 384x480 frames) after
 two warm-up steps: the step's wall time, device busy time and idle share,
 the host LAP's time, the device time by kernel family and the top kernels.
+
+With ``--relation`` it instead profiles the relation head
+(``relation_head('transformer')`` at full width, float32, TF32 off, random
+weights from the seed): one train step of a video at the largest training
+bucket (100 tubes, 1000 frames windowed to 900, 30 GT relations) after two
+warm-up steps, and one evaluation video (100 tubes, 1200 frames, padded to
+the 100 x 2048 evaluation bucket, 100 pairs) after one warm-up video. For
+each: wall time, device busy time and idle share, time by kernel family and
+the top kernels.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ FAMILIES = (
     ("gemm", "matmul (cuBLAS)"),
     ("cutlass", "matmul (cuBLAS)"),
     ("softmax", "softmax"),
+    ("logsumexp", "softmax"),
     ("layer_norm", "layer/group norm"),
     ("group_norm", "layer/group norm"),
     ("upsample", "resize"),
@@ -210,6 +220,56 @@ def profile_train(torch, np, seed, card):
     return 0
 
 
+def profile_relation(torch, np, seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from openpvsg_torch.config import relation_head
+    from openpvsg_torch.eval.rel_eval import evaluate_video
+    from openpvsg_torch.train.relation import RelationTrainer
+
+    cfg = relation_head("transformer").relation
+    rng = np.random.default_rng(seed)
+
+    def video(n, t, n_rel):
+        rels = []
+        for _ in range(n_rel):
+            s, o = (int(v) for v in rng.choice(n, 2, replace=False))
+            span = np.zeros(t)
+            a = int(rng.integers(0, t - 300))
+            span[a:a + 300] = 1
+            rels.append({"subject_index": s, "object_index": o,
+                         "relation": int(rng.integers(0, cfg.num_relations)),
+                         "relation_span": span})
+        return rng.standard_normal((n, t, cfg.d_model), dtype=np.float32), rels
+
+    trainer = RelationTrainer(cfg, np.ones(cfg.num_relations), rng_seed=seed)
+    feats, rels = video(100, 1000, 30)
+    for _ in range(2):
+        trainer.step(feats, rels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(feats, rels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {
+        "card": card, "relation_train_step": "relation_transformer",
+        "dtype": "float32", "tubes": 100, "frames": 900, "gt_relations": 30})
+
+    feats, _ = video(100, 1200, 1)
+    evaluate_video(trainer.model, feats, 100, pairwise=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate_video(trainer.model, feats, 100, pairwise=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {
+        "card": card, "relation_eval_video": "relation_transformer",
+        "dtype": "float32", "tubes": 100, "frames": 1200, "pairs": 100})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -221,6 +281,8 @@ def main(argv=None) -> int:
                     help="print the fusion kernel's static SASS counts")
     ap.add_argument("--train", action="store_true",
                     help="profile one stage-1 train step instead")
+    ap.add_argument("--relation", action="store_true",
+                    help="profile one relation train step and one eval video instead")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -247,6 +309,8 @@ def main(argv=None) -> int:
         return 0
     if args.train:
         return profile_train(torch, np, args.seed, card.splitlines()[0])
+    if args.relation:
+        return profile_relation(torch, np, args.seed, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

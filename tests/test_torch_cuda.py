@@ -405,3 +405,96 @@ def test_trainer_step_on_the_card_matches_the_cpu(dev):
         gap = float((pg.detach().cpu() - pc.detach()).abs().max())
         ulp = float(torch.finfo(torch.float32).eps * b.abs().max())
         assert gap <= 1e-2 * step + ulp, (n, gap, step)
+
+
+def _relation_cfg(name="transformer", pair_interaction=False):
+    from openpvsg_torch.config import RelationHeadConfig
+
+    return RelationHeadConfig(model_name=name, d_model=64, encoder_heads=2,
+                              encoder_ffn=96, temporal_heads=2, temporal_ffn=96,
+                              num_relations=9, pair_interaction=pair_interaction)
+
+
+def _relation_video(seed, n=10, t=70, count=6):
+    rng = np.random.default_rng(seed)
+    rels = []
+    for _ in range(count):
+        s, o = (int(v) for v in rng.choice(n, 2, replace=False))
+        span = np.zeros(t)
+        a = int(rng.integers(0, t - 8))
+        span[a:a + 8] = 1
+        rels.append({"subject_index": s, "object_index": o,
+                     "relation": int(rng.integers(0, 9)), "relation_span": span})
+    return rng.standard_normal((n, t, 64), dtype=np.float32), rels
+
+
+@pytest.mark.parametrize("name,pair_interaction", [
+    ("vanilla", False), ("filter", False), ("conv", True), ("transformer", False)])
+def test_relation_model_on_the_card_matches_the_cpu(dev, name, pair_interaction):
+    """Every output of the relation model on padded tubes and frames, card
+    against CPU from the same weights: 1e-4 of each output's scale (at
+    least 1), float32 with TF32 off."""
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.weights import random_relation_state_dict
+
+    cfg = _relation_cfg(name, pair_interaction)
+    state = random_relation_state_dict(cfg, 2)
+    rng = np.random.default_rng(3)
+    n, t, nb, tb = 10, 70, 20, 128
+    feats = np.zeros((nb, tb, 64), np.float32)
+    feats[:n, :t] = rng.standard_normal((n, t, 64))
+    pair = np.zeros((25, tb, 128), np.float32)
+    pair[:7, :t] = rng.standard_normal((7, t, 128))
+    outs = []
+    for d in ("cpu", dev):
+        m = RelationModel.from_config(cfg).to(d)
+        m.load_state_dict(state)
+        with torch.no_grad():
+            out = m(torch.from_numpy(feats).to(d), torch.from_numpy(pair).to(d),
+                    tube_valid=(torch.arange(nb) < n).to(d),
+                    frame_valid=(torch.arange(tb) < t).to(d))
+        outs.append({k: v.cpu() for k, v in out.items()})
+    for k, want in outs[0].items():
+        _close(outs[1][k], want, 1e-4)
+
+
+def test_relation_train_step_on_the_card_matches_the_cpu(dev):
+    """One RelationTrainer video, card against CPU: the loss within 1e-5
+    (relative) and every gradient within 1e-3 of its tensor's scale plus
+    1e-7 (the attention key biases have an exact gradient of zero)."""
+    from openpvsg_torch.train.relation import RelationTrainer
+    from openpvsg_torch.weights import random_relation_state_dict
+
+    cfg = _relation_cfg()
+    state = random_relation_state_dict(cfg, 4)
+    feats, rels = _relation_video(5)
+    out = []
+    for d in ("cpu", dev):
+        tr = RelationTrainer(cfg, np.arange(1, 10), device=d, state_dict=state)
+        out.append(tr.step(feats, rels)[0])
+        out.append({n: g.cpu() for (n, _), g in
+                    zip(tr.model.named_parameters(), tr._accum)})
+    assert abs(out[2] - out[0]) <= 1e-5 * abs(out[0])
+    for n, g in out[1].items():
+        assert float((out[3][n] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + 1e-7, n
+
+
+def test_relation_eval_gathers_on_the_card_as_on_the_host(dev):
+    """evaluate_video on the card: the device gather and the host gather
+    feed predict the same tensor, so their ranked results are equal."""
+    from openpvsg_torch.eval.rel_eval import evaluate_video
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.weights import random_relation_state_dict
+
+    cfg = _relation_cfg()
+    model = RelationModel.from_config(cfg).to(dev)
+    model.load_state_dict(random_relation_state_dict(cfg, 6))
+    feats, _ = _relation_video(7, n=9, t=150)
+    before = _counts()
+    for pairwise in (True, False):
+        a = evaluate_video(model, feats, 30, pairwise, device_gather=True)
+        b = evaluate_video(model, feats, 30, pairwise, device_gather=False)
+        assert a[0] == b[0] and len(a[1]) == len(b[1]) > 0
+        for x, y in zip(a[1], b[1]):
+            assert x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+    assert _counts() == before

@@ -197,3 +197,75 @@ def test_from_jax_params_raises_on_missing_and_extra_keys():
     with pytest.raises(ValueError, match=r"^from_jax_params: \d+ keys the "
                                          r"tree lacks[^;]*$"):
         from_jax_params(missing, cfg)
+
+
+def _tiny_relation_cfg():
+    from openpvsg_torch.config import RelationHeadConfig
+
+    return RelationHeadConfig(d_model=32, encoder_heads=2, encoder_ffn=48,
+                              temporal_heads=2, temporal_ffn=40, num_relations=5)
+
+
+def test_relation_trainer_defaults_to_the_gpu():
+    """A default RelationTrainer raises without a GPU instead of training
+    on the CPU; device='cpu' builds."""
+    from openpvsg_torch.train.relation import RelationTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RelationTrainer(_tiny_relation_cfg(), np.ones(5))
+    tr = RelationTrainer(_tiny_relation_cfg(), np.ones(5), device="cpu")
+    assert {p.device.type for p in tr.model.parameters()} == {"cpu"}
+
+
+def test_relation_step_runs_in_ieee_float32():
+    """The relation trainer's forward and backward run with TF32 off
+    whatever the caller set; the caller's settings come back after."""
+    from openpvsg_torch.train.relation import RelationTrainer
+
+    def flags():
+        return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+    tr = RelationTrainer(_tiny_relation_cfg(), np.ones(5), device="cpu")
+    seen = []
+    tr.model.register_forward_pre_hook(lambda *_: seen.append(flags()))
+    tr.params[0].register_hook(lambda g: seen.append(flags()))
+    span = np.zeros(12)
+    span[2:9] = 1
+    rels = [{"subject_index": 0, "object_index": 2, "relation": 3,
+             "relation_span": span}]
+    saved = flags()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        assert tr.step(np.ones((4, 12, 32), np.float32), rels) is not None
+        assert seen == [(False, False)] * 2
+        assert flags() == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_query_feats_loader_maps_simple_tube_and_refuses_other_jax_classes(tmp_path):
+    """A pickle naming openpvsg_tpu's SimpleTube loads as the port's class,
+    in a fresh interpreter that never imports openpvsg_tpu; any other class
+    of the JAX package is refused. The pickles are written by hand (protocol
+    0 GLOBAL opcodes), so this test imports no JAX either."""
+    simple = tmp_path / "simple.pickle"
+    simple.write_bytes(b"copenpvsg_tpu.tracker.tubes\nSimpleTube\n.")
+    other = tmp_path / "other.pickle"
+    other.write_bytes(b"copenpvsg_tpu.tracker.tubes\nQueryFeatTube\n.")
+    code = (
+        "import pickle, sys\n"
+        "from openpvsg_torch.data.io import load_pickle\n"
+        "from openpvsg_torch.tracker.tubes import SimpleTube\n"
+        f"assert load_pickle({str(simple)!r}) is SimpleTube\n"
+        "try:\n"
+        f"    load_pickle({str(other)!r})\n"
+        "except pickle.UnpicklingError as e:\n"
+        "    assert 'QueryFeatTube' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('QueryFeatTube was not refused')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'openpvsg_tpu']\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
