@@ -94,7 +94,26 @@ Phases, each printing one JSON line:
              loss, a parameter without a gradient or that did not move, TF32
              on inside a step, a resumed step that differs, stage 3 writing
              no relation, or any launch of B1 or B2.
-10. the ``{"kernels": [...]}`` line, then the last line
+10. stage1_cli — stage 1 from PVSG files to PQ/VPQ through the port's
+             CLIs, each in its own process, at full ``mask2former_vps`` width:
+             a PVSG root with PVSG's cardinalities (2 train videos of 17
+             360x640 frames, 32 two-frame clips, and 1 val video of 24
+             frames, 1-20 moving objects each, frame and mask PNGs);
+             ``pack_train_cache``; ``train`` (float32, global batch 4 clips,
+             8 steps per epoch) for 1 epoch from the PNGs, then ``--epochs 2
+             --auto-resume``, then 1 epoch ``--packed-cache``; ``test --eval
+             PQ,VPQ`` of epoch_2 in bfloat16 (IPS batches of 8, VPQ windows
+             of 2). Steps/s, clips/s and the loader-wait share per epoch, IPS
+             and VPQ frames/s, peak GiB, PQ and VPQ; the IPS path in float32
+             on the card against the CPU on 2 val frames (epoch_2 and random
+             weights); then B1 (8 frames, 96x160) and B2 ((8, 100, 96, 160)
+             cropped to 360x640) against their plain versions at the IPS
+             batch's shapes. It fails when a CLI exits non-zero, a loss is
+             not finite, the resumed run does not start at epoch 1, the IPS
+             pan_results differ on more than 0.1% of the pixels, the test CLI
+             did not launch B1 or B2, a train run launched either, or a
+             kernel disagrees with its plain version.
+11. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -104,6 +123,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -189,11 +209,13 @@ def max_abs(a, b):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_fpn(torch, gen, dev):
+def check_fpn(torch, gen, dev, B=2, H=96, W=120, at="stage2"):
+    """B1's launches and chain against their plain versions at (B, H, W)
+    stride-4 pixels of 256 channels; ``at`` names the path of that shape."""
     from openpvsg_torch.kernels import fpn
     from openpvsg_torch.ops.resize import resize_bilinear
 
-    B, H, W, Cin, C, Cout, G, eps = 2, 96, 120, 256, 256, 256, 32, 1e-6
+    Cin, C, Cout, G, eps = 256, 256, 256, 32, 1e-6
     H8, W8 = H // 2, W // 2
 
     def rnd(*shape, scale=1.0, shift=0.0):
@@ -294,7 +316,8 @@ def check_fpn(torch, gen, dev):
                    "tflops": s["flops"] / ms / 1e9, "bound_share": bound_ms / ms,
                    "design": DESIGN[name] if dt == torch.bfloat16 else SIMT, "ok": ok}
             results[(name, dt_name)] = row
-            emit({"phase": "kernel_vs_plain", "kernel": name, "dtype": dt_name, **row})
+            emit({"phase": "kernel_vs_plain", "kernel": name, "dtype": dt_name,
+                  "at": at, "shape": [B, H, W, C], **row})
             if not ok:
                 fail(f"{name} {dt_name} disagrees with its plain version: {row}")
         ref_max = float(chain_ref.float().abs().max())
@@ -310,7 +333,7 @@ def check_fpn(torch, gen, dev):
                    torch, lambda: fpn.fpn_stride4_plain(f0, s8, p32, G, eps))}
         row["ok"] = err <= row["tol"] and row["deterministic"]
         emit({"phase": "kernel_vs_plain", "kernel": "fpn_stride4 (chain)",
-              "dtype": dt_name, **row})
+              "dtype": dt_name, "at": at, "shape": [B, H, W, C], **row})
         if not row["ok"]:
             fail(f"fpn_stride4 {dt_name} disagrees with the module chain or "
                  f"with itself: {row}")
@@ -389,15 +412,19 @@ def fusion_bound(N, Q, h, w, n_sig, sm_clock_hz):
     return t[term] * 1e3, term, {k: v * 1e3 for k, v in t.items()}
 
 
-def check_fusion(torch, gen, dev, sm_clock_hz):
+def check_fusion(torch, gen, dev, sm_clock_hz, N=2, h=96, w=120, ori=(360, 480),
+                 inputs=("smoke", "no_skip"), at="stage2"):
+    """B2 against its plain version on (N, 100, h, w) logits cropped to
+    ``ori``; ``at`` names the path of that shape. The main-path call also
+    times one CTA alone."""
     from openpvsg_torch.kernels import fusion
 
     rows = {}
-    for name in ("smoke", "no_skip"):
-        low, scores = fusion_input(torch, gen, dev, no_skip=name == "no_skip")
+    for name in inputs:
+        low, scores = fusion_input(torch, gen, dev, no_skip=name == "no_skip",
+                                   N=N, h=h, w=w)
         N, Q, h, w = low.shape
         H, W = 4 * h, 4 * w
-        ori = (360, 480)
         got = fusion.fusion_maps(low, scores, (H, W), ori)
         ref = fusion.fusion_maps_plain(low, scores, ori)
         torch.cuda.synchronize()
@@ -427,11 +454,14 @@ def check_fusion(torch, gen, dev, sm_clock_hz):
         row["max_abs_err"] = max(row["mask_area_max_diff"], row["original_area_max_diff"])
         row["ok"] = (row["owner_mismatch"] == row["binary_mismatch"] == row["max_abs_err"]
                      == 0)
-        emit({"phase": "kernel_vs_plain", "kernel": "fusion_maps", "dtype": "float32", **row})
+        emit({"phase": "kernel_vs_plain", "kernel": "fusion_maps", "dtype": "float32",
+              "at": at, "shape": [N, Q, h, w], "ori_hw": list(ori), **row})
         if not row["ok"]:
             fail(f"fusion_maps disagrees with its plain version on the {name} input: {row}")
         rows[name] = row
         del low, scores, got, ref
+    if at != "stage2":
+        return rows
     # one CTA alone (8x8 low-res pixels, one frame): the kernel's latency
     low, scores = fusion_input(torch, gen, dev, no_skip=False, N=1, h=8, w=8)
     rows["smoke"]["one_cta_ms"] = time_ms(
@@ -1228,6 +1258,220 @@ def run_relations(torch, np, seed, wrappers, n_train=64, n_eval=16):
     return train, train_large
 
 
+# ---------------------------------------------------------------------------
+# phase 10: stage 1 through the port's CLIs
+# ---------------------------------------------------------------------------
+
+IPS_PIXEL_SHARE = 1e-3  # card float32 against CPU: share of IPS pixels that may differ
+
+
+def stage1_videos(np, seed, data_dir, n_train=2, train_frames=17, n_val=1,
+                  val_frames=24, H=360, W=640):
+    """A PVSG-layout root with PVSG's cardinalities (115 thing and 11 stuff
+    classes, 57 relations): frame PNGs and palette mask PNGs of ``n_train``
+    train and ``n_val`` val videos, each with 1-20 moving rectangles of
+    random classes and colours over a noise background (later ones drawn
+    over earlier ones). Returns the pvsg.json path."""
+    from PIL import Image
+
+    anno = {"objects": {"thing": [f"thing{i}" for i in range(115)],
+                        "stuff": [f"stuff{i}" for i in range(11)]},
+            "relations": [f"rel{i}" for i in range(57)]}
+    classes = anno["objects"]["thing"] + anno["objects"]["stuff"]
+    data, split = [], {"train": [], "val": []}
+    plan = [("train", train_frames)] * n_train + [("val", val_frames)] * n_val
+    for v, (part, T) in enumerate(plan):
+        vid = f"{2000 + v:04d}_stage1_{v}"
+        rng = np.random.default_rng([seed, 2000 + v])
+        frames = rng.integers(0, 60, (T, H, W, 3), dtype=np.uint8)
+        masks = np.zeros((T, H, W), np.uint8)
+        objects = []
+        for oid in range(1, int(rng.integers(1, 21)) + 1):
+            h, w = int(rng.integers(H // 10, H // 3)), int(rng.integers(W // 10, W // 3))
+            y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+            dy, dx = (float(d) for d in rng.uniform(-6.0, 6.0, 2))
+            color = rng.integers(60, 256, 3, dtype=np.uint8)
+            for t in range(T):
+                yt = min(max(int(y + t * dy), 0), H - h)
+                xt = min(max(int(x + t * dx), 0), W - w)
+                masks[t, yt:yt + h, xt:xt + w] = oid
+                frames[t, yt:yt + h, xt:xt + w] = color
+            objects.append({"object_id": oid,
+                            "category": classes[int(rng.integers(0, len(classes)))]})
+        for kind, arrays in (("frames", frames), ("masks", masks)):
+            out = os.path.join(data_dir, "vidor", kind, vid)
+            os.makedirs(out)
+            for t in range(T):
+                Image.fromarray(arrays[t]).save(os.path.join(out, f"{t:04d}.png"))
+        data.append({"video_id": vid, "meta": {"num_frames": T, "height": H, "width": W},
+                     "objects": objects, "relations": []})
+        split[part].append(vid)
+    anno.update(split={"vidor": split, "epic_kitchen": {"train": [], "val": []},
+                       "ego4d": {"train": [], "val": []}}, data=data)
+    path = os.path.join(data_dir, "pvsg.json")
+    with open(path, "w") as f:
+        json.dump(anno, f)
+    return path
+
+
+def run_cli(name, args, timeout=600):
+    """``python -m openpvsg_torch.tools.<name> args`` from the repository
+    root; fails on a non-zero exit. Returns (seconds, its summary line or
+    None, its standard output)."""
+    from openpvsg_torch.tools.common import parse_summary
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"openpvsg_torch.tools.{name}", *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{name} {' '.join(args)} exited {out.returncode}: {out.stderr[-3000:]}")
+    summary = parse_summary(out.stderr) if name in ("train", "test") else None
+    return seconds, summary, out.stdout
+
+
+def train_rates(summary, seconds):
+    """steps/s, clips/s and the loader-wait share of each epoch of a train
+    CLI run (the epoch's wall time: loader waits, steps and their logs)."""
+    clips = summary["global_batch"]
+    rows = []
+    for e in summary["epochs"]:
+        busy = e["step_seconds"] + e["loader_wait_seconds"]
+        rows.append({"epoch": e["epoch"], "steps": e["steps"], "seconds": e["seconds"],
+                     "steps_per_s": e["steps"] / e["seconds"],
+                     "clips_per_s": e["steps"] * clips / e["seconds"],
+                     "loader_wait_share": e["loader_wait_seconds"] / busy,
+                     "first_step_ms": e["step_seconds_each"][0] * 1e3,
+                     "step_ms_median_after_first": statistics.median(
+                         e["step_seconds_each"][1:] or e["step_seconds_each"]) * 1e3,
+                     "host_lap_ms_median": statistics.median(
+                         e["host_lap_seconds_each"]) * 1e3})
+    return {"process_seconds": seconds, "start_epoch": summary["start_epoch"],
+            "global_batch": clips, "steps": summary["steps"], "epochs": rows,
+            "losses_first_last": [summary["losses"][0], summary["losses"][-1]],
+            "losses_finite": all(math.isfinite(v) for v in summary["losses"]),
+            "peak_gib": summary["peak_gib"], "launches": summary["launches"]}
+
+
+def check_ips_reference(torch, np, cfg, state, frames):
+    """``infer_frames_ips`` of the full-width model on 2 frames, float32, on
+    the card (B1, B2) and on the CPU (plain versions): the share of pixels
+    whose panoptic id differs, and the share that is not void."""
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+
+    outs = {}
+    for dev in ("cpu", None):
+        seg = SegmenterInference(cfg, state, dtype=torch.float32, device=dev)
+        outs[dev] = [o["pan_results"] for o in seg.infer_frames_ips(frames)]
+        del seg
+    diff = float(np.mean([np.mean(a != b) for a, b in zip(outs[None], outs["cpu"])]))
+    segmented = float(np.mean([np.mean(b != cfg.num_classes) for b in outs["cpu"]]))
+    return {"frames": list(frames.shape), "pixel_mismatch_share": diff,
+            "non_void_share": segmented, "tol_share": IPS_PIXEL_SHARE,
+            "ok": diff <= IPS_PIXEL_SHARE}
+
+
+def run_stage1_cli(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
+    """Stage 1 through the port's CLIs at full ``mask2former_vps`` width:
+    write the PVSG root, ``pack_train_cache``, ``train`` for 1 epoch from
+    the PNGs, ``train --epochs 2 --auto-resume``, 1 epoch ``--packed-cache``,
+    then ``test --eval PQ,VPQ`` of epoch_2 in bfloat16; the IPS path card
+    against CPU in float32 on 2 val frames (the epoch_2 weights and the
+    stage-2 random weights); B1 and B2 against their plain versions at the
+    IPS batch's shapes. Returns B1's rows and B2's at those shapes and the
+    test CLI's launch counts."""
+    from openpvsg_torch.config import get_config
+    from openpvsg_torch.data.pipeline import load_frame
+    from openpvsg_torch.data.pvsg import frame_paths
+    from openpvsg_torch.train.checkpoint import load_model_state
+    from openpvsg_torch.weights import random_state_dict
+
+    t_phase = time.perf_counter()
+    problems = []
+    # the in-process checks compare float32 results: TF32 off, as in phase 3
+    # (the CLIs run in their own processes with torch's defaults)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": False})
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        t0 = time.perf_counter()
+        anno = stage1_videos(np, seed, data_dir)
+        setup_s = time.perf_counter() - t0
+        common = ["--data-dir", data_dir, "--anno-file", anno, "--work-dir", work]
+        train = ["--config", "mask2former_vps"] + common
+        pack_s, _, _ = run_cli("pack_train_cache", train + [
+            "--out", os.path.join(work, "packed")])
+        runs = {}
+        for name, extra in (("png", ["--epochs", "1"]),
+                            ("png_resumed", ["--epochs", "2", "--auto-resume"]),
+                            ("packed", ["--epochs", "1", "--work-dir",
+                                        os.path.join(work, "packed_run"),
+                                        "--packed-cache", os.path.join(work, "packed")])):
+            seconds, summary, _ = run_cli("train", train + extra)
+            runs[name] = train_rates(summary, seconds)
+            emit({"phase": "stage1_cli", "part": f"train_{name}", **runs[name]})
+        if runs["png_resumed"]["start_epoch"] != 1:
+            problems.append("the resumed run did not start at epoch 1")
+        for name, row in runs.items():
+            if not row["losses_finite"]:
+                problems.append(f"train {name}: a loss is not finite")
+            if any(row["launches"].values()):
+                problems.append(f"train {name} launched B1 or B2: {row['launches']}")
+        run_dir = os.path.join(work, "mask2former_vps")
+        ckpt = os.path.join(run_dir, "epoch_2")
+        if not os.path.exists(ckpt):
+            fail("the resumed train run wrote no epoch_2")
+        # random-ish weights keep little: lower the keep thresholds, as stage 2
+        keep = ["--set", "model.object_mask_thr=0.0", "model.iou_thr=0.1"]
+        seconds, test, printed = run_cli("test", [
+            "--config", os.path.join(run_dir, "config.json"), "--checkpoint", ckpt,
+            "--eval", "PQ,VPQ", "--split", "val", "--batch-size", "8"] + common + keep)
+        test_row = {"process_seconds": seconds, "dtype": test["dtype"],
+                    "ips_frames": test["ips_frames"], "ips_batch": test["ips_batch"],
+                    "ips_frames_per_s": test["ips_frames"] / test["ips_seconds"],
+                    "vpq_frames": test["vpq_frames"],
+                    "vpq_frames_per_s": test["vpq_frames"] / test["vpq_seconds"],
+                    "vpq_scoring_share": test["vpq_scoring_seconds"] / test["vpq_seconds"],
+                    "pq": test["pq"], "vpq": test["vpq"], "printed": printed.splitlines(),
+                    "peak_gib": test["peak_gib"], "launches": test["launches"]}
+        emit({"phase": "stage1_cli", "part": "test", **test_row})
+        if not all(test["launches"].values()):
+            problems.append(f"the test CLI did not launch every kernel: {test['launches']}")
+        if not all(math.isfinite(v) for v in (test["pq"]["PQ"], test["vpq"]["VPQ"])):
+            problems.append("PQ or VPQ is not finite")
+
+        # the IPS path on the card against the CPU, float32, 2 val frames
+        cfg = dataclasses.replace(get_config("mask2former_vps").model,
+                                  object_mask_thr=0.0, iou_thr=0.1)
+        val = frame_paths(data_dir, "2002_stage1_2", "frames")[:2]
+        frames = np.stack([load_frame(p) for p in val])
+        ips = {}
+        for name, state in (("epoch_2", load_model_state(ckpt)),
+                            ("random", random_state_dict(cfg, seed))):
+            ips[name] = check_ips_reference(torch, np, cfg, state, frames)
+            if not ips[name]["ok"]:
+                problems.append(f"IPS pan_results on the card and the CPU differ "
+                                f"({name} weights): {ips[name]}")
+        emit({"phase": "stage1_cli", "part": "ips_reference", **ips})
+
+    # B1 and B2 at the shapes the test CLI's IPS batch gives them: 8 frames
+    # of 360x640, padded to 384x640, 96x160 at stride 4
+    before = launch_counts(wrappers)
+    fpn_rows = check_fpn(torch, gen, dev, B=8, H=96, W=160, at="stage1_ips")
+    fusion_rows = check_fusion(torch, gen, dev, sm_clock_hz, N=8, h=96, w=160,
+                               ori=(360, 640), inputs=("smoke",), at="stage1_ips")
+    compared = launch_counts(wrappers)  # comparison launches, not the path's
+    row = {"setup_s": setup_s, "pack_s": pack_s, "problems": problems,
+           "comparison_launches": {k: v - before[k] for k, v in compared.items()},
+           "seconds": time.perf_counter() - t_phase, "ok": not problems}
+    emit({"phase": "stage1_cli", "part": "summary", **row})
+    if problems:
+        fail("stage1_cli: " + "; ".join(problems))
+    return fpn_rows, fusion_rows["smoke"], test["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1313,7 +1557,13 @@ def main(argv=None) -> int:
     check_rel_reference(torch, np, args.seed)
     run_relations(torch, np, args.seed, wrappers)
 
-    # 8. the kernels line and the result
+    # 10. stage 1 through the CLIs (in their own processes: the launch counts
+    # of the train and test CLIs come from their summary lines), then B1 and
+    # B2 at the test CLI's IPS shapes
+    ips_fpn, ips_fusion, cli_launches = run_stage1_cli(
+        torch, np, args.seed, gen, dev, float(clock) * 1e6, wrappers)
+
+    # 11. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -1334,6 +1584,13 @@ def main(argv=None) -> int:
                  "bound_share": row["bound_share"], "design": row["design"],
                  "parity": "pass",
                  "dtype": "float32" if name == "fusion_maps" else "bfloat16"}
+        ips = ips_fusion if name == "fusion_maps" else ips_fpn[(name, "bfloat16")]
+        entry.update(stage1_cli_launches=cli_launches[fn.__name__],
+                     ips_shape=([8, 100, 96, 160] if name == "fusion_maps"
+                                else [8, 96, 160, 256]),
+                     ips_max_abs_err=ips["max_abs_err"], ips_ms=ips["ms"],
+                     ips_plain_ms=ips["plain_ms"], ips_bound_ms=ips["bound_ms"],
+                     ips_library_ms=ips["library_ms"])
         if name == "fusion_maps":
             ns = fusion_rows["no_skip"]
             entry.update(bound_term=row["bound_term"],

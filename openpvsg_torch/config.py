@@ -1,19 +1,24 @@
 """Configuration: the ``Mask2FormerConfig`` family, the segmenter's
-``TrainConfig``, the relation head's ``RelationHeadConfig`` and their
-presets (``mask2former_vps``, ``relation_head``, ``relation_conv_interact``,
-``relation_conv_large``).
+``TrainConfig``, the relation head's ``RelationHeadConfig``, the data
+pipeline's ``DataConfig``, their presets, and the ``config.json`` and
+``--set key=value`` plumbing of the CLIs.
 
-The port's own copy of the inference, stage-1 training and relation-head
-fields of ``openpvsg_tpu.config`` (same names, same defaults), so a
-configuration reads the same in both packages. Tracker and data settings,
-and the segmenter training CLI's fields (epochs, seed, checkpoint and log
-intervals), are not ported yet. ``check_training_config`` refuses the training values
-this port does not run yet, naming the ``ROADMAP.md`` item that ports them.
+The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults),
+so a configuration reads the same in both packages. The fields of modules
+not ported yet (the tracker, Swin, the MSDA encoder, int8 weights, instance
+postprocessing) are left out: ``load_config_file`` reads a ``config.json``
+of the JAX package when each of them holds its JAX default and raises
+naming the first that does not. ``check_training_config`` refuses the
+training values this port does not run yet, naming the ``ROADMAP.md`` item
+that ports them.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 from openpvsg_torch import NUM_RELATIONS, NUM_STUFF_CLASSES, NUM_THING_CLASSES
 
@@ -102,17 +107,42 @@ class Mask2FormerConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Segmenter optimization (reference config lines 163-191 + schedules).
-    ``samples_per_gpu`` is the clips per step that ``chip_smoke.py``'s train
-    phase starts from."""
+    ``samples_per_gpu`` sets the train CLI's global batch
+    (``max(samples_per_gpu // 4, 1)`` clips on one device); ``epochs``,
+    ``seed``, ``checkpoint_interval`` and ``log_interval`` are read by the
+    train CLI only."""
     lr: float = 1e-4
     weight_decay: float = 0.05
     backbone_lr_mult: float = 0.1
     grad_clip: float = 0.01
+    epochs: int = 8
     lr_step_epochs: Tuple[int, ...] = (7,)
     lr_gamma: float = 0.1
     warmup_iters: int = 10
     warmup_ratio: float = 1e-3
     samples_per_gpu: int = 32
+    seed: int = 0
+    checkpoint_interval: int = 1
+    log_interval: int = 50
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    data_dir: str = "./data"
+    anno_file: str = "./data/pvsg.json"
+    work_dir: str = "./work_dirs"
+    # train pipeline (reference: configs/_base_/datasets/pvsg_vps.py:4-22)
+    train_scale: Tuple[int, int] = (360, 480)  # (h, w), keep_ratio=False
+    crop_size: Tuple[int, int] = (360, 480)
+    flip_prob: float = 0.5
+    pad_divisor: int = 32
+    # the ImageNet RGB statistics on RGB-loaded frames (to_rgb=False)
+    mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    to_rgb: bool = False
+    ref_seq_index: Tuple[int, ...] = (0, 1)  # 2-frame VPS clips
+    ref_seq_len_test: int = 2
+    num_workers: int = 4
 
 
 @dataclass(frozen=True)
@@ -150,6 +180,13 @@ class PVSGConfig:
     model: Mask2FormerConfig = field(default_factory=Mask2FormerConfig)
     relation: RelationHeadConfig = field(default_factory=RelationHeadConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+
+def mask2former_ips() -> PVSGConfig:
+    """configs/mask2former/mask2former_r50_lsj_8x2_50e_coco-panoptic_custom.py:
+    the per-frame (IPS) segmenter, R-50 with frozen BN."""
+    return PVSGConfig(name="mask2former_ips")
 
 
 def mask2former_vps() -> PVSGConfig:
@@ -192,6 +229,142 @@ def relation_conv_large() -> PVSGConfig:
             model_name="conv",
             encoder_layers=3, encoder_ffn=1024,
             temporal_layers=2, temporal_heads=8, temporal_ffn=1024))
+
+
+PRESETS = {
+    "mask2former_ips": mask2former_ips,
+    "mask2former_vps": mask2former_vps,
+    "relation_vanilla": lambda: relation_head("vanilla"),
+    "relation_filter": lambda: relation_head("filter"),
+    "relation_conv": lambda: relation_head("conv"),
+    "relation_transformer": lambda: relation_head("transformer"),
+    "relation_conv_interact": relation_conv_interact,
+    "relation_conv_large": relation_conv_large,
+}
+
+# Fields of the JAX package's schema that the port leaves out, with the JAX
+# default each must hold in a config.json the port reads, and the ROADMAP.md
+# item that ports its module.
+JAX_ONLY_FIELDS: Dict[str, Tuple[Any, str]] = {
+    "model.backbone.swin_variant": ("tiny", "A12"),
+    "model.pixel_decoder.strides": ([4, 8, 16, 32], "A12"),
+    "model.pixel_decoder.num_points": (4, "A12"),
+    "model.pixel_decoder.fused_fpn": (False, "A4"),
+    "model.int8_weights": (False, "A12"),
+    "model.max_per_image": (100, "A6"),
+    "model.filter_low_score": (True, "A6"),
+    "train.embed_no_decay": (True, "A9"),
+}
+# the tracker (TrackerConfig) is not ported: every field at its JAX default
+JAX_ONLY_FIELDS.update({f"tracker.{k}": (v, "A11") for k, v in {
+    "conf_thres": 0.5, "track_buffer": 300, "use_kalman": True,
+    "asso_with_motion": False, "motion_lambda": 0.98, "motion_gated": False,
+    "dup_iou_thres": 0.15, "confirm_iou_thres": 0.7, "max_mask_area": 300,
+    "feat_size": [4, 10], "first_assoc_thresh": 0.9,
+    "second_assoc_iou_thresh": 0.5, "prop_flag": False, "down_factor": 8,
+    "appearance_depth": 50, "model_type": "imagenet50",
+    "remove_layers": ["layer4"]}.items()})
+
+
+def get_config(name: str) -> PVSGConfig:
+    """A preset name, or the path of a ``config.json`` (``save_config``; the
+    train CLI writes one into its work directory)."""
+    if name.endswith(".json"):
+        if not os.path.exists(name):
+            raise FileNotFoundError(
+                f"config file '{name}' does not exist (a .json --config is "
+                f"always treated as a path, never a preset name)")
+        return load_config_file(name)
+    if name not in PRESETS:
+        raise KeyError(f"unknown config preset '{name}'; have {sorted(PRESETS)} "
+                       "(the Swin presets are not ported: ROADMAP.md A12)")
+    return PRESETS[name]()
+
+
+def config_to_dict(cfg: PVSGConfig) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def _dataclass_from_dict(cls, d: Dict[str, Any]):
+    defaults = cls()
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        cur = getattr(defaults, f.name)
+        if isinstance(v, dict) and dataclasses.is_dataclass(cur):
+            kwargs[f.name] = _dataclass_from_dict(type(cur), v)
+        elif isinstance(v, list):
+            # json has no tuples; every sequence field here is a tuple
+            kwargs[f.name] = tuple(tuple(e) if isinstance(e, list) else e
+                                   for e in v)
+        else:
+            kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def save_config(cfg: PVSGConfig, path: str) -> None:
+    """Write ``cfg`` as JSON in the JAX package's schema (the fields the
+    port has; ``openpvsg_tpu.config.load_config_file`` fills the rest with
+    its defaults)."""
+    with open(path, "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1)
+
+
+def _lookup(d: Dict[str, Any], dotted: str):
+    for part in dotted.split("."):
+        if not isinstance(d, dict) or part not in d:
+            return None, False
+        d = d[part]
+    return d, True
+
+
+def load_config_file(path: str) -> PVSGConfig:
+    """Read a ``config.json`` written by ``save_config`` or by the JAX
+    package's ``tools/train.py``. A field the port leaves out
+    (``JAX_ONLY_FIELDS``) must hold its JAX default; otherwise this raises
+    ValueError naming the field."""
+    with open(path) as f:
+        d = json.load(f)
+    for name, (default, item) in JAX_ONLY_FIELDS.items():
+        value, present = _lookup(d, name)
+        if present and value != default:
+            raise ValueError(
+                f"{path}: {name}={value!r} is not ported to openpvsg_torch "
+                f"(only the JAX default {default!r}); ROADMAP.md {item} ports it")
+    return _dataclass_from_dict(PVSGConfig, d)
+
+
+def apply_overrides(cfg: Any, overrides: Dict[str, Any]) -> Any:
+    """Apply dotted-path overrides (the --cfg-options equivalent)."""
+    for key, value in overrides.items():
+        cfg = _replace_path(cfg, key.split("."), value)
+    return cfg
+
+
+def _replace_path(obj: Any, parts: List[str], value: Any) -> Any:
+    if len(parts) == 1:
+        cur = getattr(obj, parts[0])
+        if cur is not None and not isinstance(value, type(cur)):
+            if isinstance(cur, bool):
+                value = str(value).lower() in ("1", "true", "yes")
+            elif isinstance(cur, (int, float)):
+                value = type(cur)(value)
+            elif isinstance(cur, tuple):
+                value = tuple(type(cur[0])(v)
+                              for v in str(value).strip("()[] ").split(","))
+        return dataclasses.replace(obj, **{parts[0]: value})
+    child = getattr(obj, parts[0])
+    return dataclasses.replace(obj, **{parts[0]: _replace_path(child, parts[1:], value)})
+
+
+def parse_set_args(pairs: Sequence[str]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for p in pairs or []:
+        k, _, v = p.partition("=")
+        out[k] = v
+    return out
 
 
 def resolve_assigner(cfg: Mask2FormerConfig) -> str:

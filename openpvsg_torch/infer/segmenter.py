@@ -1,12 +1,16 @@
-"""Segmenter inference for VPS stage 2: batched per-frame forward, MinVIS
-query stitching and panoptic fusion — the VPS half of
-``openpvsg_tpu/infer/segmenter.py:31,62-363``.
+"""Segmenter inference: batched per-frame forward, panoptic fusion, and
+for VPS the MinVIS query stitching, the port of
+``openpvsg_tpu/infer/segmenter.py:31,62-363``: the IPS half
+(``infer_frames_ips`` and its async/package halves, the test CLI's PQ path)
+and the VPS half (stage 2 and the test CLI's VPQ path).
 
 Frames enter raw (uint8 RGB, unpadded); normalization and padding run inside
 the forward on the device, so only uint8 crosses to the card. The forward
-runs all frames of a window batch at once; only the MinVIS stitch, which
+runs all frames of a batch at once; for VPS only the MinVIS stitch, which
 needs the query embeddings, runs on the host between the forward and the
-fusion.
+fusion. Fusion takes the stride-4 logits of the padded frame: kernel B2
+upsamples them 4x, crops to the frame's own size and assigns the owners
+(the JAX package upsamples to the padded size and crops before fusing).
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 from openpvsg_torch import native
 from openpvsg_torch.config import Mask2FormerConfig
 from openpvsg_torch.data.pipeline import pad_to_divisor
-from openpvsg_torch.models.fusion import panoptic_fusion
+from openpvsg_torch.models.fusion import panoptic_fusion, query_feats_by_segment
 from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.models.resnet import fold_frozen_bn
 
@@ -120,6 +124,35 @@ class SegmenterInference:
         return self.model(x.to(self.dtype))
 
     # ------------------------------------------------------------------
+    def infer_frames_ips(self, frames: np.ndarray,
+                         ori_hw: Optional[Tuple[int, int]] = None) -> List[Dict]:
+        """IPS path: per-frame panoptic results and per-segment query
+        features (the simple_test_with_query surface) of (N, H, W, 3) uint8
+        frames. Returns one {'pan_results': (H, W) mmdet-format int32,
+        'query_feats': {segment_id: (C,) float32}} per frame."""
+        return self.package_ips(self.infer_frames_ips_async(frames, ori_hw))
+
+    @torch.no_grad()
+    def infer_frames_ips_async(self, frames: np.ndarray,
+                               ori_hw: Optional[Tuple[int, int]] = None):
+        """Enqueue forward and fusion of a frame batch without waiting for
+        them; ``package_ips`` fetches the results. CUDA launches are
+        asynchronous, so with two handles in flight the next batch's upload
+        and forward run while the host packages this one."""
+        ori_hw = ori_hw or tuple(frames.shape[1:3])
+        cls_logits, mask_logits, query = self.forward_frames(frames)
+        fusion = panoptic_fusion(
+            cls_logits, mask_logits, self.cfg.num_things_classes,
+            self.cfg.num_stuff_classes, self.cfg.object_mask_thr,
+            self.cfg.iou_thr, self._padded_hw(frames), ori_hw)
+        return fusion, query
+
+    def package_ips(self, handle) -> List[Dict]:
+        """Blocking half of ``infer_frames_ips``: fetch a handle's results
+        to host per-frame dicts."""
+        fusion, query = handle
+        return self._package(fusion, query)
+
     def infer_windows_vps(self, frames: np.ndarray, window: int,
                           prev_embds: Optional[np.ndarray] = None,
                           chain_windows: bool = False,
@@ -201,14 +234,7 @@ class SegmenterInference:
         keep = fusion["query_keep"].cpu().numpy()
         seg_ids = fusion["segment_id"].cpu().numpy()
         q = query.float().cpu().numpy()
-        out = []
-        for t in range(pan.shape[0]):
-            feats: Dict[int, List[np.ndarray]] = {}
-            for k in np.flatnonzero(keep[t]):
-                feats.setdefault(int(seg_ids[t, k]), []).append(q[t, k])
-            out.append({
-                "pan_results": pan[t],
-                "query_feats": {sid: np.mean(v, axis=0)
-                                for sid, v in feats.items()},
-            })
-        return out
+        return [{"pan_results": pan[t],
+                 "query_feats": query_feats_by_segment(
+                     {"query_keep": keep[t], "segment_id": seg_ids[t]}, q[t])}
+                for t in range(pan.shape[0])]

@@ -10,11 +10,14 @@
 The owner and area step runs as kernel B2 (``kernels/fusion.py``) on the
 stride-4 logits, so the upsampled (Q, H, W) masks are never materialized on
 the card; the rest (valid, cumulative instance ids, paint) is torch.
+``query_feats_by_segment`` attaches the kept queries' features to their
+segments on the host.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from openpvsg_torch import INSTANCE_OFFSET
@@ -69,3 +72,18 @@ def panoptic_fusion(cls_logits: torch.Tensor, mask_low: torch.Tensor,
         "labels": labels,
         "scores": scores,
     }
+
+
+def query_feats_by_segment(fusion: Dict[str, np.ndarray],
+                           query_feats: np.ndarray) -> Dict[int, np.ndarray]:
+    """Host side, one frame: {segment_id: query feature}; a stuff segment
+    that merged several queries averages their features (reference:
+    mask2former_fusion_head.py:96-171 and the stuff averaging in
+    unitrack/data/single_video.py:60-76). ``fusion`` holds the frame's
+    ``query_keep`` (Q,) and ``segment_id`` (Q,) as numpy arrays."""
+    out: Dict[int, list] = {}
+    keep = np.asarray(fusion["query_keep"])
+    seg_ids = np.asarray(fusion["segment_id"])
+    for q in np.flatnonzero(keep):
+        out.setdefault(int(seg_ids[q]), []).append(np.asarray(query_feats[q]))
+    return {k: np.mean(v, axis=0) for k, v in out.items()}

@@ -6,7 +6,13 @@ written with ``torch.save`` and read back with
 ``torch.load(weights_only=True)``.
 
 The format is the port's own. A trainer resumed from a checkpoint takes the
-same next step, bit for bit on the CPU, as one that was never interrupted.
+same next step as one that was never interrupted, bit for bit on the CPU
+when the step's operations are deterministic there: at one intra-op thread
+(``torch.set_num_threads(1)``) or under
+``torch.use_deterministic_algorithms(True)``. With more threads, torch's
+CPU backward of advanced indexing (``index_put_`` with accumulate on
+float32, at least 32768 elements) adds atomically in parallel, so two
+identical steps can differ in the last bits when the host is loaded.
 Loading the JAX package's msgpack or mmdet ``.pth`` checkpoints is not
 ported (ROADMAP.md A9).
 """
@@ -58,3 +64,10 @@ def load_relation_checkpoint(path: str, trainer) -> None:
     trainer._accum_count = int(state["accum_count"])
     version, internal, gauss = state["rng"]
     trainer.rng.setstate((version, tuple(internal), gauss))
+
+
+def load_model_state(path: str):
+    """The model's state dict (float32, with the BN running statistics) of
+    a ``SegmenterTrainer`` checkpoint, on the CPU: what ``SegmenterInference``
+    takes (it folds the BN)."""
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]

@@ -56,10 +56,12 @@ def _fpn_case(B, H, W, Cin, C, Cout, dt, dev, seed=0):
 # (B, H, W, Cin, C, Cout, groups): ragged pixel tiles (H*W not a multiple of
 # 128 or 64; H and W not multiples of the bf16 conv's 24x8 tile, H*W not
 # one of its 192 pixels), channel counts that are multiples of 8 but not of
-# 16 or 64, output widths below one tile, and the main-path width (B = 2)
+# 16 or 64, output widths below one tile, the main-path width (B = 2), and
+# the test CLI's IPS batch (8 frames of 360x640, padded to 384x640)
 FPN_CASES = [(1, 16, 24, 32, 32, 16, 4), (2, 18, 30, 96, 64, 48, 8),
              (2, 32, 40, 136, 256, 200, 32), (1, 96, 120, 256, 256, 256, 32),
-             (2, 20, 36, 64, 64, 64, 8), (2, 96, 120, 256, 256, 256, 32)]
+             (2, 20, 36, 64, 64, 64, 8), (2, 96, 120, 256, 256, 256, 32),
+             (8, 96, 160, 256, 256, 256, 32)]
 
 
 @pytest.mark.parametrize("case", FPN_CASES)
@@ -192,11 +194,11 @@ def _fusion_case(kind, N, Q, h, w, g):
 
 # (N, Q, h, w, ori): tiles of 8x8 low-res pixels that end partway, ori below
 # the padded frame, one query, more queries than a 32-query ring stage holds
-# (Q = 130 ends with one query per group), and the main-path width with a
-# ragged edge
+# (Q = 130 ends with one query per group), the main-path width with a
+# ragged edge, and the test CLI's IPS batch (8 frames of 360x640)
 FUSION_SHAPES = [(1, 1, 5, 7, (20, 28)), (2, 7, 16, 20, (57, 70)),
                  (3, 100, 24, 30, (90, 120)), (3, 130, 24, 30, (81, 117)),
-                 (2, 100, 97, 121, (383, 470))]
+                 (2, 100, 97, 121, (383, 470)), (8, 100, 96, 160, (360, 640))]
 FUSION_KINDS = ["random", "flip_band", "ties", "tie_order", "all_dropped", "one_kept",
                 "no_skip"]
 
@@ -284,6 +286,34 @@ def test_model_gpu_path_matches_cpu_path(dev):
     cpu = SegmenterInference(cfg, state, device="cpu").forward_frames(frames)
     for a, b in zip(gpu, cpu):
         _close(a.cpu(), b, 1e-3)
+
+
+def test_ips_pan_results_on_the_card_match_the_cpu(dev):
+    """``infer_frames_ips`` of the tiny segmenter on one 2-frame batch (frames
+    cropped from their padded size), float32: the card through B1 and B2
+    against the CPU through the plain versions; at most 0.1% of the pixels
+    may differ (logits within 1e-3 of their scale can swap an owner)."""
+    from openpvsg_torch.config import (BackboneConfig, Mask2FormerConfig,
+                                       PixelDecoderConfig,
+                                       TransformerDecoderConfig)
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = Mask2FormerConfig(
+        num_things_classes=3, num_stuff_classes=2, num_queries=8,
+        backbone=BackboneConfig(depth=26),
+        pixel_decoder=PixelDecoderConfig(encoder_layers=1, ffn_channels=64),
+        decoder=TransformerDecoderConfig(num_layers=3, ffn_channels=64),
+        object_mask_thr=0.0, iou_thr=0.1)
+    state = random_state_dict(cfg, 1)
+    frames = np.random.default_rng(1).integers(0, 255, (2, 90, 120, 3), dtype=np.uint8)
+    before = _counts()
+    gpu = SegmenterInference(cfg, state, device=dev).infer_frames_ips(frames)
+    assert all(a > b for a, b in zip(_counts(), before))
+    cpu = SegmenterInference(cfg, state, device="cpu").infer_frames_ips(frames)
+    for a, b in zip(gpu, cpu):
+        assert a["pan_results"].shape == (90, 120)
+        assert (a["pan_results"] != b["pan_results"]).mean() <= 1e-3
 
 
 def _tiny_train_cfg():
@@ -498,3 +528,26 @@ def test_relation_eval_gathers_on_the_card_as_on_the_host(dev):
         for x, y in zip(a[1], b[1]):
             assert x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
     assert _counts() == before
+
+
+def test_train_cli_runs_on_the_card_with_deterministic(dev, tmp_path):
+    """The train CLI on the card with ``--deterministic``: operations without
+    a deterministic CUDA implementation warn instead of raising, and two
+    steps train (the global setting is restored after)."""
+    from openpvsg_torch.tools import make_synthetic_data, train
+
+    root = str(tmp_path / "data")
+    anno = make_synthetic_data.main(["--out", root, "--frames", "3", "--size", "64", "64"])
+    args = ["--config", "mask2former_vps", "--data-dir", root, "--anno-file", anno,
+            "--work-dir", str(tmp_path / "work"), "--epochs", "1", "--deterministic",
+            "--set", "model.backbone.depth=26", "model.num_queries=8",
+            "model.num_things_classes=5", "model.num_stuff_classes=3",
+            "model.decoder.num_layers=3", "model.decoder.ffn_channels=64",
+            "model.pixel_decoder.encoder_layers=1", "model.pixel_decoder.ffn_channels=64",
+            "data.train_scale=64,64", "data.crop_size=64,64", "train.samples_per_gpu=8"]
+    try:
+        out = train.main(args)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert out["steps"] == 2 and out["device"].startswith("cuda")
+    assert all(np.isfinite(out["losses"])) and not any(out["launches"].values())

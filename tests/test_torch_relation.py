@@ -319,9 +319,25 @@ def test_trainer_three_applies_match_jax():
                                    err_msg="/".join(path))
 
 
-def test_checkpoint_resume_takes_the_same_next_step(tmp_path):
+@pytest.fixture
+def one_intra_op_thread():
+    """Run the test at one intra-op thread, restoring the count after. With
+    more, torch's CPU backward of advanced indexing (``index_put_`` with
+    accumulate, float32, at least 32768 elements) adds atomically in
+    parallel, so two identical steps can differ in the last bits when the
+    host is loaded."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def test_checkpoint_resume_takes_the_same_next_step(tmp_path, one_intra_op_thread):
     """Save in the middle of an accumulation cycle; a trainer resumed from
-    the file takes the same next steps, bitwise on the CPU."""
+    the file takes the same next steps, bitwise on the CPU at one intra-op
+    thread."""
     from openpvsg_torch.train.checkpoint import (load_relation_checkpoint,
                                                  save_relation_checkpoint)
     from openpvsg_torch.train.relation import RelationTrainer

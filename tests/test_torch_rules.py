@@ -269,3 +269,38 @@ def test_query_feats_loader_maps_simple_tube_and_refuses_other_jax_classes(tmp_p
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_port_clis_load_no_jax(tmp_path):
+    """``python -m openpvsg_torch.tools.{make_synthetic_data,
+    pack_train_cache,train,test}`` run on the CPU at a tiny size, each in a
+    fresh interpreter; ``-X importtime`` lists every module each loaded, and
+    none is jax, flax or openpvsg_tpu."""
+    data, work = str(tmp_path / "data"), str(tmp_path / "work")
+    tiny = ["--set", "model.backbone.depth=26", "model.num_queries=8",
+            "model.num_things_classes=5", "model.num_stuff_classes=3",
+            "model.decoder.num_layers=1", "model.decoder.ffn_channels=32",
+            "model.pixel_decoder.encoder_layers=1",
+            "model.pixel_decoder.ffn_channels=32", "data.train_scale=32,32",
+            "data.crop_size=32,32", "train.samples_per_gpu=4"]
+    common = ["--config", "mask2former_vps", "--data-dir", data,
+              "--anno-file", os.path.join(data, "pvsg.json"), "--work-dir", work,
+              "--device", "cpu"]
+    runs = [("make_synthetic_data", ["--out", data, "--train-videos", "1",
+                                     "--val-videos", "1", "--frames", "2",
+                                     "--size", "32", "32"]),
+            ("pack_train_cache", common + tiny),
+            ("train", common + ["--epochs", "1"] + tiny),
+            ("test", common + ["--eval", "PQ,VPQ"] + tiny)]
+    for name, args in runs:
+        out = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", f"openpvsg_torch.tools.{name}",
+             *args], cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (name, out.stderr[-2000:])
+        loaded = {ln.split("|")[-1].strip() for ln in out.stderr.splitlines()
+                  if ln.startswith("import time:")}
+        assert ("openpvsg_torch.data.synthetic" if name == "make_synthetic_data"
+                else "openpvsg_torch.tools.common") in loaded
+        bad = sorted(m for m in loaded if m.split(".")[0] in FORBIDDEN)
+        assert not bad, (name, bad)
+    assert os.path.exists(os.path.join(work, "mask2former_vps", "epoch_1"))

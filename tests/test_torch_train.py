@@ -448,7 +448,22 @@ def test_clip_matches_optax(scale):
             np.testing.assert_array_equal(g.numpy(), w_)
 
 
-def test_checkpoint_round_trip_is_bitwise(jax_side, tmp_path):
+@pytest.fixture
+def one_intra_op_thread():
+    """Run the test at one intra-op thread, restoring the count after. With
+    more, torch's CPU backward of advanced indexing (``index_put_`` with
+    accumulate, float32, at least 32768 elements) adds atomically in
+    parallel, so two identical steps can differ in the last bits when the
+    host is loaded."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def test_checkpoint_round_trip_is_bitwise(jax_side, tmp_path, one_intra_op_thread):
     from openpvsg_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
     batch = _batch()
