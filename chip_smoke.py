@@ -113,7 +113,30 @@ Phases, each printing one JSON line:
              pan_results differ on more than 0.1% of the pixels, the test CLI
              did not launch B1 or B2, a train run launched either, or a
              kernel disagrees with its plain version.
-11. the ``{"kernels": [...]}`` line, then the last line
+11. stage2_ips — IPS stage 2 at full ``mask2former_ips`` width, from
+             torch's default TF32 settings (the tracker turns TF32 off for
+             its device work): (a) ``run_query_tube_ips`` on one synthetic
+             64-frame 360x640 video of moving rectangles (R-50, folded BN,
+             bf16 segmenter, random weights from the seed with
+             ``object_mask_thr=0.0``, ``iou_thr=0.1``; the ``imagenet50 s3``
+             appearance encoder in float32; batches of 8, two in flight),
+             with the launch counts zeroed just before and read just after:
+             frames/s, segments per frame, tubes, peak GiB, launches; (b) the
+             tracker alone on the GT of the relations phase's first video
+             (20 moving objects, 360x640, 120 of its frames painted as
+             frames, from frame 130, where most objects are present at
+             once): ms per frame split into appearance extraction,
+             reconsdot (host clock and CUDA events) and host, peak GiB, and
+             MOTA / IDF1 / HOTA against the GT (reported, not gated); (c)
+             the tracker on the card and on the CPU over the first 16 of
+             those frames: every reconsdot matrix within 1e-4 absolute and
+             the same track ids per frame; then B1 (8 frames, 96x160) and B2
+             ((8, 100, 96, 160) cropped to 360x640) against their plain
+             versions, TF32 off. It fails when the IPS path writes no
+             segment or does not launch B1 and B2, when the card and the
+             CPU disagree, or when a kernel disagrees with its plain
+             version.
+12. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -993,6 +1016,29 @@ def check_rel_reference(torch, np, seed):
         fail(f"the relation model on the card disagrees with the CPU: {row}")
 
 
+def moving_objects(np, rng, T, H, W, n_obj, classes):
+    """GT label maps (T, H, W) of ``n_obj`` moving rectangles, each present
+    in at least half of the frames (later ones drawn over earlier ones),
+    drawn from ``rng``; with their {"object_id", "category"} entries and
+    {object id: (first frame, end frame)}."""
+    masks = np.zeros((T, H, W), np.uint8)
+    objects, present = [], {}
+    for oid in range(1, n_obj + 1):
+        a = int(rng.integers(0, T // 2))
+        b = int(rng.integers(a + T // 2, T + 1))
+        h, w = int(rng.integers(H // 10, H // 3)), int(rng.integers(W // 10, W // 3))
+        y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+        dy, dx = (float(d) for d in rng.uniform(-1.0, 1.0, 2))
+        for t in range(a, b):
+            yt = min(max(int(y + (t - a) * dy), 0), H - h)
+            xt = min(max(int(x + (t - a) * dx), 0), W - w)
+            masks[t, yt:yt + h, xt:xt + w] = oid
+        objects.append({"object_id": oid,
+                        "category": classes[int(rng.integers(0, len(classes)))]})
+        present[oid] = (a, b)
+    return masks, objects, present
+
+
 def stage3_videos(np, seed, work_dir, n_videos=2, T=380, H=360, W=640, n_obj=20):
     """Synthetic videos and their oracle stage-2 outputs: each video has
     ``n_obj`` moving rectangles (random classes, each present in at least
@@ -1018,21 +1064,7 @@ def stage3_videos(np, seed, work_dir, n_videos=2, T=380, H=360, W=640, n_obj=20)
     for v in range(n_videos):
         vid = f"{1000 + v:04d}_smoke{v}"
         rng = np.random.default_rng([seed, 1000 + v])
-        masks = np.zeros((T, H, W), np.uint8)
-        objects, present = [], {}
-        for oid in range(1, n_obj + 1):
-            a = int(rng.integers(0, T // 2))
-            b = int(rng.integers(a + T // 2, T + 1))
-            h, w = int(rng.integers(H // 10, H // 3)), int(rng.integers(W // 10, W // 3))
-            y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
-            dy, dx = (float(d) for d in rng.uniform(-1.0, 1.0, 2))
-            for t in range(a, b):
-                yt = min(max(int(y + (t - a) * dy), 0), H - h)
-                xt = min(max(int(x + (t - a) * dx), 0), W - w)
-                masks[t, yt:yt + h, xt:xt + w] = oid
-            objects.append({"object_id": oid,
-                            "category": classes[int(rng.integers(0, len(classes)))]})
-            present[oid] = (a, b)
+        masks, objects, present = moving_objects(np, rng, T, H, W, n_obj, classes)
         relations = []
         for _ in range(int(rng.integers(1, 31))):
             s, o = (int(i) + 1 for i in rng.choice(n_obj, 2, replace=False))
@@ -1472,6 +1504,265 @@ def run_stage1_cli(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
     return fpn_rows, fusion_rows["smoke"], test["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: IPS stage 2 (segmenter, appearance encoder, tracker)
+# ---------------------------------------------------------------------------
+
+TRACK_COST_TOL = 1e-4  # reconsdot, card against CPU, absolute (costs in [0, 2])
+PVSG_CLASSES = [f"thing{i}" for i in range(115)] + [f"stuff{i}" for i in range(11)]
+
+
+def ips_frames(np, seed, n=64, H=360, W=640):
+    """A synthetic 360x640 video: noise with 6 coloured rectangles moving
+    at different speeds, one leaving the frame half way."""
+    rng = np.random.default_rng([seed, 4000])
+    frames = rng.integers(0, 60, (n, H, W, 3), dtype=np.uint8)
+    boxes = [(int(rng.integers(0, H - 100)), int(rng.integers(0, W - 160)),
+              int(rng.integers(50, 100)), int(rng.integers(60, 160)),
+              *rng.uniform(-4.0, 4.0, 2)) for _ in range(6)]
+    colors = rng.integers(60, 256, (6, 3), dtype=np.uint8)
+    for t in range(n):
+        for i, (y, x, h, w, dy, dx) in enumerate(boxes):
+            if i == 5 and t >= n // 2:
+                continue
+            yt = min(max(int(y + t * dy), 0), H - h)
+            xt = min(max(int(x + t * dx), 0), W - w)
+            frames[t, yt:yt + h, xt:xt + w] = colors[i]
+    return frames
+
+
+def tracker_video(np, seed, start=130, n_frames=120):
+    """Frames ``start`` to ``start + n_frames`` of the relations phase's
+    first video (its GT label maps, the same draws), painted as frames: each
+    object in a colour of its own over noise. Every object of that video is
+    present from a frame before 190 for at least 190 frames, so this window
+    holds most of the 20 at once (the first frames hold few). Returns
+    (frames, label maps, {object id: class index})."""
+    rng = np.random.default_rng([seed, 1000])
+    masks, objects, _ = moving_objects(np, rng, 380, 360, 640, 20, PVSG_CLASSES)
+    masks = masks[start:start + n_frames]
+    paint = np.random.default_rng([seed, 3000])
+    frames = paint.integers(0, 60, (*masks.shape, 3), dtype=np.uint8)
+    colors = paint.integers(60, 256, (21, 3), dtype=np.uint8)
+    for oid in range(1, 21):
+        frames[masks == oid] = colors[oid]
+    return frames, masks, {o["object_id"]: PVSG_CLASSES.index(o["category"])
+                           for o in objects}
+
+
+def gt_detections(np, masks_t, classes, feats, rng):
+    """One frame's GT as detections: a binary mask per present object (by
+    object id) and its query feature (fixed per object, plus noise)."""
+    ids = [int(i) for i in np.unique(masks_t) if i]
+    masks = np.stack([(masks_t == i).astype(np.uint8) for i in ids]) if ids else \
+        np.zeros((0, *masks_t.shape), np.uint8)
+    qf = [{"query_feat": feats[i] + 0.1 * rng.standard_normal(256).astype(np.float32),
+           "cls_id": classes[i]} for i in ids]
+    return ids, masks, qf
+
+
+class TrackerTimer:
+    """Wraps the tracker's two device calls (appearance extraction, the
+    reconsdot cost) with synchronized host clocks and CUDA events, and keeps
+    each cost matrix; ``restore`` puts the originals back."""
+
+    def __init__(self, torch):
+        from openpvsg_torch.tracker import matching, tracker
+
+        self.torch, self.mods = torch, (tracker, matching)
+        self.orig = (tracker.extract_object_embeddings, matching.reconsdot_distance)
+        self.s = {"extract": 0.0, "reconsdot": 0.0, "reconsdot_device": 0.0}
+        self.costs = []
+        tracker.extract_object_embeddings = self._wrap("extract", self.orig[0])
+        matching.reconsdot_distance = self._wrap("reconsdot", self.orig[1])
+
+    def _wrap(self, name, fn):
+        torch = self.torch
+
+        def timed(*args, **kwargs):
+            cuda = "cuda" in str(kwargs.get("device", "")) or any(
+                isinstance(a, torch.nn.Module) and next(a.parameters()).is_cuda
+                for a in args)
+            if cuda:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if cuda:
+                end.record()
+                torch.cuda.synchronize()
+                if name == "reconsdot":
+                    self.s["reconsdot_device"] += start.elapsed_time(end) / 1e3
+            self.s[name] += time.perf_counter() - t0
+            if name == "reconsdot":
+                self.costs.append(out)
+            return out
+        return timed
+
+    def restore(self):
+        self.mods[0].extract_object_embeddings = self.orig[0]
+        self.mods[1].reconsdot_distance = self.orig[1]
+
+
+def track_video(torch, np, tracker, frames, masks, classes, seed):
+    """Feed the GT detections of each frame to ``tracker``; returns the
+    per-frame (track ids, {track id: mask}) and the host seconds of each
+    ``update``."""
+    rng = np.random.default_rng([seed, 5000])
+    feats = {i: rng.standard_normal(256).astype(np.float32) for i in range(1, 21)}
+    out, seconds, n_dets = [], [], []
+    for t in range(len(frames)):
+        _, m, qf = gt_detections(np, masks[t], classes, feats, rng)
+        if tracker.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        online, _ = tracker.update(frames[t], m, qf)
+        seconds.append(time.perf_counter() - t0)
+        out.append(([o.track_id for o in online], {o.track_id: o.mask for o in online}))
+        n_dets.append(len(m))
+    return out, seconds, n_dets
+
+
+def run_stage2_ips(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
+    """IPS stage 2 at full ``mask2former_ips`` width: (a) ``run_query_tube_ips``
+    on a 64-frame 360x640 video (bf16 segmenter, float32 ``imagenet50 s3``
+    appearance encoder, batches of 8, two in flight) with the launch counts
+    zeroed just before and read just after; (b) the tracker alone on the GT
+    of the relations phase's first video (20 objects, 360x640, 120 frames):
+    ms per frame split into appearance extraction, reconsdot and host, peak
+    GiB, MOTA / IDF1 / HOTA against the GT; (c) the tracker on the card and
+    on the CPU over the first 16 of those frames: every reconsdot matrix
+    within 1e-4 and the same track ids. (a)-(c) run from torch's default
+    TF32 settings (the tracker turns TF32 off for its device work); then B1
+    and B2 against their plain versions at the IPS batch's shapes, TF32 off.
+    Returns the path's launch counts and B1's and B2's rows."""
+    from openpvsg_torch.config import TrackerConfig, mask2former_ips
+    from openpvsg_torch.eval.mot_metrics import evaluate_hota, evaluate_mots
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.stages import run_query_tube_ips
+    from openpvsg_torch.tracker.tracker import MaskAssociationTracker
+    from openpvsg_torch.weights import random_appearance_state_dict, random_state_dict
+
+    t_phase = time.perf_counter()
+    problems = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": True})
+    cfg = dataclasses.replace(mask2former_ips().model, object_mask_thr=0.0, iou_thr=0.1)
+    tcfg = TrackerConfig()
+    app_state = random_appearance_state_dict(tcfg, seed)
+
+    # (a) the IPS stage runner
+    seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+    frames = list(ips_frames(np, seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_query_tube_ips(seg, MaskAssociationTracker(tcfg, app_state), frames[:8],
+                           os.path.join(tmp, "warm"))
+        tracker = MaskAssociationTracker(tcfg, app_state)
+        n_dets = []
+        update = tracker.update
+        tracker.update = lambda f, m, q, *a: (n_dets.append(len(m)), update(f, m, q, *a))[1]
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_tubes = run_query_tube_ips(seg, tracker, frames, os.path.join(tmp, "vid"),
+                                     batch_size=8, pipeline_depth=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        with open(os.path.join(tmp, "vid", "quantitive", "masks.txt")) as f:
+            lines = f.read().splitlines()
+    ips = {"frames": len(frames), "frame_hw": [360, 640], "batch": 8, "pipeline_depth": 2,
+           "segmenter_dtype": "bfloat16", "appearance": "imagenet50 s3, float32",
+           "seconds": wall, "frames_per_s": len(frames) / wall,
+           "segments_per_frame": float(np.mean(n_dets)), "segments_max": max(n_dets),
+           "tubes": n_tubes, "masks_txt_lines": len(lines),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches}
+    emit({"phase": "stage2_ips", "part": "run_query_tube_ips", **ips})
+    del seg
+    if not lines:
+        problems.append("IPS masks.txt is empty")
+    if any(v == 0 for v in launches.values()):
+        problems.append(f"a kernel of the IPS path never launched: {launches}")
+
+    # (b) the tracker alone on a PVSG-like association load
+    vframes, vmasks, classes = tracker_video(np, seed)
+    timer = TrackerTimer(torch)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tracker = MaskAssociationTracker(tcfg, app_state)
+        track_video(torch, np, tracker, vframes[:4], vmasks[:4], classes, seed)  # warm-up
+        timer.s = dict.fromkeys(timer.s, 0.0)
+        tracker = MaskAssociationTracker(tcfg, app_state)
+        out, seconds, n_dets = track_video(torch, np, tracker, vframes, vmasks, classes, seed)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        split = dict(timer.s)
+    finally:
+        timer.restore()
+    n = len(vframes)
+    total = sum(seconds)
+    gt = [{int(i): (vmasks[t] == i).astype(np.uint8) for i in np.unique(vmasks[t]) if i}
+          for t in range(n)]
+    pred = [o[1] for o in out]
+    mots, hota = evaluate_mots(gt, pred), evaluate_hota(gt, pred)
+    track = {"frames": n, "frame_hw": [360, 640], "gt_objects_max": max(n_dets),
+             "detections_per_frame": float(np.mean(n_dets)),
+             "tracks_final": len(tracker.tracked_stracks) + len(tracker.lost_stracks),
+             "ms_per_frame": total / n * 1e3,
+             "extract_ms_per_frame": split["extract"] / n * 1e3,
+             "reconsdot_ms_per_frame": split["reconsdot"] / n * 1e3,
+             "reconsdot_device_ms_per_frame": split["reconsdot_device"] / n * 1e3,
+             "host_ms_per_frame": (total - split["extract"] - split["reconsdot"]) / n * 1e3,
+             "last_frame_ms": seconds[-1] * 1e3, "peak_gib": peak,
+             "MOTA": mots["MOTA"], "IDF1": mots["IDF1"], "HOTA": hota["HOTA"],
+             "id_switches": mots["id_switches"], "tubes": len(tracker.query_feat_tubes)}
+    emit({"phase": "stage2_ips", "part": "tracker", **track})
+
+    # (c) card against CPU on the first 16 frames
+    runs = {}
+    for name in ("cpu", "cuda"):
+        timer = TrackerTimer(torch)
+        try:
+            tracker = MaskAssociationTracker(tcfg, app_state, device=name)
+            out, _, _ = track_video(torch, np, tracker, vframes[:16], vmasks[:16],
+                                    classes, seed)
+        finally:
+            timer.restore()
+        runs[name] = ([o[0] for o in out], timer.costs)
+    costs_cpu, costs_gpu = runs["cpu"][1], runs["cuda"][1]
+    shapes_equal = [a.shape for a in costs_cpu] == [b.shape for b in costs_gpu]
+    err = max((float(np.abs(a - b).max()) for a, b in zip(costs_cpu, costs_gpu) if a.size),
+              default=0.0) if shapes_equal else float("inf")
+    ref = {"frames": 16, "cost_matrices": len(costs_cpu),
+           "cost_shapes": [list(a.shape) for a in costs_cpu],
+           "reconsdot_max_abs_err": err, "tol": TRACK_COST_TOL,
+           "track_ids_equal": runs["cpu"][0] == runs["cuda"][0],
+           "track_ids_last": runs["cuda"][0][-1]}
+    emit({"phase": "stage2_ips", "part": "tracker_reference", **ref})
+    if not (ref["track_ids_equal"] and err <= TRACK_COST_TOL):
+        problems.append(f"the tracker on the card and on the CPU disagree: {ref}")
+    if not any(a.size for a in costs_cpu):
+        problems.append("no reconsdot cost was computed in the first 16 frames")
+
+    # B1 and B2 against their plain versions at the IPS batch's shapes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": False})
+    fpn_rows = check_fpn(torch, gen, dev, B=8, H=96, W=160, at="stage2_ips")
+    fusion_rows = check_fusion(torch, gen, dev, sm_clock_hz, N=8, h=96, w=160,
+                               ori=(360, 640), inputs=("smoke",), at="stage2_ips")
+    row = {"problems": problems, "seconds": time.perf_counter() - t_phase,
+           "ok": not problems}
+    emit({"phase": "stage2_ips", "part": "summary", **row})
+    if problems:
+        fail("stage2_ips: " + "; ".join(problems))
+    return launches, fpn_rows, fusion_rows["smoke"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1563,7 +1854,13 @@ def main(argv=None) -> int:
     ips_fpn, ips_fusion, cli_launches = run_stage1_cli(
         torch, np, args.seed, gen, dev, float(clock) * 1e6, wrappers)
 
-    # 11. the kernels line and the result
+    # 11. IPS stage 2 (its launch counts are zeroed just before its run and
+    # read just after), the tracker alone, the tracker card against CPU, then
+    # B1 and B2 at the IPS batch's shapes
+    ips2_launches, ips2_fpn, ips2_fusion = run_stage2_ips(
+        torch, np, args.seed, gen, dev, float(clock) * 1e6, wrappers)
+
+    # 12. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -1591,6 +1888,10 @@ def main(argv=None) -> int:
                      ips_max_abs_err=ips["max_abs_err"], ips_ms=ips["ms"],
                      ips_plain_ms=ips["plain_ms"], ips_bound_ms=ips["bound_ms"],
                      ips_library_ms=ips["library_ms"])
+        ips2 = ips2_fusion if name == "fusion_maps" else ips2_fpn[(name, "bfloat16")]
+        entry.update(stage2_ips_launches=ips2_launches[fn.__name__],
+                     stage2_ips_max_abs_err=ips2["max_abs_err"],
+                     stage2_ips_ms=ips2["ms"], stage2_ips_plain_ms=ips2["plain_ms"])
         if name == "fusion_maps":
             ns = fusion_rows["no_skip"]
             entry.update(bound_term=row["bound_term"],

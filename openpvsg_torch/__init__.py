@@ -11,20 +11,24 @@ counterpart is found by its path:
 - ``openpvsg_torch.kernels`` — hand-written CUDA kernels for Hopper
   (``csrc/*.cu``) with their plain-PyTorch versions, bound through ctypes.
 - ``openpvsg_torch.infer``   — segmenter inference (IPS and VPS), the
-  stage-2 VPS runner and stage 3 (``run_rel_set``).
+  stage-2 IPS and VPS runners and stage 3 (``run_rel_set``).
 - ``openpvsg_torch.train``   — stage-1 segmenter training (Hungarian
   assigner, dense loss, optimizer recipe, trainer) and stage-4 relation-head
   training, with checkpoints of both trainers.
 - ``openpvsg_torch.eval``    — stage 3's tube matching, stage 5's R@K /
-  mR@K evaluation (proxy and mask-grounded), and PQ / VPQ.
+  mR@K evaluation (proxy and mask-grounded), PQ / VPQ and the MOTS
+  tracking metrics.
 - ``openpvsg_torch.data``    — RLE codec, stage-boundary files, frame and mask
   loading, palette-mask decoding, the train pipeline, pvsg.json accessors,
   the segmenter and relation datasets, the prefetch loader, the packed
   training cache and the synthetic dataset generator.
 - ``openpvsg_torch.tools``   — the CLIs (``python -m
-  openpvsg_torch.tools.{make_synthetic_data,pack_train_cache,train,test}``).
-- ``openpvsg_torch.utils``   — the JSONL metrics logger.
-- ``openpvsg_torch.tracker`` — query-feature tubes.
+  openpvsg_torch.tools.{make_synthetic_data,pack_train_cache,train,test,
+  prepare_query_tube_ips,prepare_query_tube_vps,eval_mots}``).
+- ``openpvsg_torch.utils``   — the JSONL metrics logger and the palette.
+- ``openpvsg_torch.tracker`` — IPS stage 2's mask tracker (Kalman filter,
+  track states, association costs with the reconsdot cost on the device,
+  the appearance encoder zoo) and the query-feature tubes.
 - ``openpvsg_torch.native``  — ctypes binding of ``native/pvsg_native.cpp``.
 
 The port imports torch, numpy and scipy only; it never imports jax, flax or

@@ -1,11 +1,11 @@
 """Configuration: the ``Mask2FormerConfig`` family, the segmenter's
-``TrainConfig``, the relation head's ``RelationHeadConfig``, the data
-pipeline's ``DataConfig``, their presets, and the ``config.json`` and
-``--set key=value`` plumbing of the CLIs.
+``TrainConfig``, the tracker's ``TrackerConfig``, the relation head's
+``RelationHeadConfig``, the data pipeline's ``DataConfig``, their presets,
+and the ``config.json`` and ``--set key=value`` plumbing of the CLIs.
 
 The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults),
 so a configuration reads the same in both packages. The fields of modules
-not ported yet (the tracker, Swin, the MSDA encoder, int8 weights, instance
+not ported yet (Swin, the MSDA encoder, int8 weights, instance
 postprocessing) are left out: ``load_config_file`` reads a ``config.json``
 of the JAX package when each of them holds its JAX default and raises
 naming the first that does not. ``check_training_config`` refuses the
@@ -146,6 +146,33 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TrackerConfig:
+    """UniTrack MOTS association parameters of IPS stage 2 (reference:
+    configs/unitrack/imagenet_resnet50_s3_womotion_timecycle.py:5-41).
+    ``feat_size``, ``prop_flag`` and ``down_factor`` are read by nothing,
+    as in the JAX package."""
+    conf_thres: float = 0.5
+    track_buffer: int = 300
+    use_kalman: bool = True
+    asso_with_motion: bool = False
+    motion_lambda: float = 0.98
+    motion_gated: bool = False
+    dup_iou_thres: float = 0.15
+    confirm_iou_thres: float = 0.7
+    max_mask_area: int = 300
+    feat_size: Tuple[int, int] = (4, 10)
+    first_assoc_thresh: float = 0.9  # appearance association cost limit
+    second_assoc_iou_thresh: float = 0.5
+    prop_flag: bool = False
+    down_factor: int = 8
+    appearance_depth: int = 50  # ResNet depth of the appearance model
+    # appearance-encoder zoo entry and layer surgery (reference model_type /
+    # remove_layers, models/unitrack/model/model.py:89-147; see tracker/zoo.py)
+    model_type: str = "imagenet50"
+    remove_layers: Tuple[str, ...] = ("layer4",)
+
+
+@dataclass(frozen=True)
 class RelationHeadConfig:
     """Relation-head hyperparameters (reference: tools/rel_train.py:38-97).
     The capacity knobs default to the reference's fixed values: encoders
@@ -178,6 +205,7 @@ class RelationHeadConfig:
 class PVSGConfig:
     name: str = "mask2former_ips"
     model: Mask2FormerConfig = field(default_factory=Mask2FormerConfig)
+    tracker: TrackerConfig = field(default_factory=TrackerConfig)
     relation: RelationHeadConfig = field(default_factory=RelationHeadConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -255,15 +283,6 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[Any, str]] = {
     "model.filter_low_score": (True, "A6"),
     "train.embed_no_decay": (True, "A9"),
 }
-# the tracker (TrackerConfig) is not ported: every field at its JAX default
-JAX_ONLY_FIELDS.update({f"tracker.{k}": (v, "A11") for k, v in {
-    "conf_thres": 0.5, "track_buffer": 300, "use_kalman": True,
-    "asso_with_motion": False, "motion_lambda": 0.98, "motion_gated": False,
-    "dup_iou_thres": 0.15, "confirm_iou_thres": 0.7, "max_mask_area": 300,
-    "feat_size": [4, 10], "first_assoc_thresh": 0.9,
-    "second_assoc_iou_thresh": 0.5, "prop_flag": False, "down_factor": 8,
-    "appearance_depth": 50, "model_type": "imagenet50",
-    "remove_layers": ["layer4"]}.items()})
 
 
 def get_config(name: str) -> PVSGConfig:

@@ -1,6 +1,11 @@
 """Stage runners of the file-mediated cascade, ports of
 ``openpvsg_tpu/infer/stages.py``:
 
+  stage 2 IPS: ``run_query_tube_ips`` — per-frame IPS inference over one
+               video and UniTrack-style association (``MaskAssociationTracker``)
+               -> the same two files (reference:
+               tools/prepare_query_tube_ips.py +
+               models/unitrack/test_mots_from_mask2former.py eval_seq)
   stage 2 VPS: ``run_query_tube_vps`` — windowed MinVIS inference over one
                video, tube identity from panoptic segment ids ->
                ``{save_root}/quantitive/masks.txt`` and
@@ -13,6 +18,7 @@
 from __future__ import annotations
 
 import os
+import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -27,11 +33,121 @@ from openpvsg_torch.eval.relation_matching import (
     compact_matching_dict, match_gt_tubes, process_feats_and_relations,
     translate_gt_relations)
 from openpvsg_torch.infer.segmenter import SegmenterInference
+from openpvsg_torch.tracker.tracker import MaskAssociationTracker
 from openpvsg_torch.tracker.tubes import SimpleTube
 
 
 def _frame(f: Union[str, np.ndarray]) -> np.ndarray:
     return f if isinstance(f, np.ndarray) else load_frame(f)
+
+
+def _segments_to_masks(pan: np.ndarray, query_feats: Dict[int, np.ndarray]):
+    """Split an mmdet-format pan map into per-object binary masks aligned
+    with query features (reference: unitrack/data/single_video.py:10-103)."""
+    masks, feats = [], []
+    for seg_id, feat in query_feats.items():
+        mask = (pan == seg_id).astype(np.uint8)
+        if mask.sum() == 0:
+            continue
+        masks.append(mask)
+        feats.append({"query_feat": np.asarray(feat), "cls_id": seg_id % INSTANCE_OFFSET})
+    if not masks:
+        return np.zeros((0, *pan.shape), np.uint8), []
+    return np.stack(masks), feats
+
+
+def save_tracking_overlay(save_root: str, frame_id: int, img: np.ndarray,
+                          masks: Sequence[np.ndarray],
+                          track_ids: Sequence[int]) -> None:
+    """Per-frame qualitative overlay PNG (reference:
+    models/unitrack/test_mots_from_mask2former.py:72-78 and
+    mask2former_vps/utils.py:55-69; the 'qualititive/' spelling is kept for
+    output-tree compatibility): each track's mask blended in its stable
+    palette color, annotated with the track id."""
+    from PIL import Image, ImageDraw
+
+    from openpvsg_torch.utils.palette import color_for
+
+    out = img.astype(np.float32)
+    for mask, tid in zip(masks, track_ids):
+        m = mask.astype(bool)
+        out[m] = 0.5 * out[m] + 0.5 * np.asarray(color_for(int(tid)),
+                                                 np.float32)
+    im = Image.fromarray(out.astype(np.uint8))
+    draw = ImageDraw.Draw(im)
+    for mask, tid in zip(masks, track_ids):
+        ys, xs = np.nonzero(mask)
+        if len(ys):
+            draw.text((int(xs.min()), int(ys.min())), str(int(tid)),
+                      fill=(255, 255, 255))
+    d = os.path.join(save_root, "qualititive")
+    os.makedirs(d, exist_ok=True)
+    im.save(os.path.join(d, f"{frame_id:06d}.png"))
+
+
+def run_query_tube_ips(
+    segmenter: SegmenterInference,
+    tracker: MaskAssociationTracker,
+    frames: Sequence[Union[str, np.ndarray]],
+    save_root: str,
+    batch_size: int = 8,
+    log_fn=None,
+    save_images: bool = False,
+    pipeline_depth: int = 2,
+) -> int:
+    """IPS stage 2 for one video; returns the number of tubes. Logs the
+    running fps every 20 frames through ``log_fn`` (the reference's only
+    throughput surface, test_mots_from_mask2former.py:44-49).
+
+    frames: image paths or decoded (H, W, 3) uint8 RGB frames.
+    pipeline_depth: frame batches enqueued on the device before the oldest
+    is fetched, packaged and tracked, so batch N+1's upload and forward run
+    while the host tracks batch N; 1 is the serial loop. Results are the
+    same at any depth: the tracker consumes the frames in order."""
+    num_frames = len(frames)
+    results = []
+    frame_id = 0
+
+    def dispatch(lo: int):
+        raw = [_frame(f) for f in frames[lo:lo + batch_size]]
+        # raw uint8 batch: normalization and padding run in the forward
+        return raw, segmenter.infer_frames_ips_async(np.stack(raw))
+
+    offsets = list(range(0, num_frames, batch_size))
+    pending: deque = deque()
+    next_i = 0
+    while next_i < len(offsets) or pending:
+        while next_i < len(offsets) and len(pending) < max(pipeline_depth, 1):
+            pending.append(dispatch(offsets[next_i]))
+            next_i += 1
+        # timed after the refill: fps is frames consumed per interval
+        t0 = time.perf_counter()
+        raw, handle = pending.popleft()
+        for img, out in zip(raw, segmenter.package_ips(handle)):
+            frame_id += 1
+            masks, qfeats = _segments_to_masks(out["pan_results"], out["query_feats"])
+            online, _ = tracker.update(img, masks, qfeats)
+            rles, tids, vis_masks = [], [], []
+            for t in online:
+                if t.mask is None:
+                    continue
+                rle = rle_codec.encode(t.mask)
+                rle["class_id"] = t.cls_id
+                rles.append(rle)
+                tids.append(t.track_id)
+                vis_masks.append(t.mask)
+            results.append((frame_id, rles, tids))
+            if save_images:
+                save_tracking_overlay(save_root, frame_id, img, vis_masks, tids)
+        if log_fn and frame_id % 20 < batch_size:
+            fps = len(raw) / max(time.perf_counter() - t0, 1e-5)
+            log_fn(f"frame {frame_id}/{num_frames} ({fps:.2f} fps)")
+
+    tubes = tracker.finalize(num_frames)
+    data_io.write_masks_txt(
+        os.path.join(save_root, "quantitive", "masks.txt"), results)
+    data_io.save_pickle(os.path.join(save_root, "query_feats.pickle"), tubes)
+    return len(tubes)
 
 
 def run_query_tube_vps(
@@ -41,6 +157,7 @@ def run_query_tube_vps(
     window: int = 2,
     chain_windows: bool = False,
     pipeline_depth: int = 2,
+    save_images: bool = False,
 ) -> int:
     """VPS stage 2 for one video; returns the number of tubes.
 
@@ -48,7 +165,8 @@ def run_query_tube_vps(
     arrays, which are taken as already decoded RGB frames.
 
     chain_windows carries the last frame's aligned query embeddings across
-    windows (off by default, as in the reference). Each window runs as one
+    windows (off by default, as in the reference). save_images writes the
+    ``qualititive/`` overlays. Each window runs as one
     forward; pipeline_depth windows are enqueued on the device before the
     oldest is fetched and stitched. Results are identical at any depth."""
     total_frames = len(frames)
@@ -58,7 +176,7 @@ def run_query_tube_vps(
 
     def dispatch(lo: int):
         raw = np.stack([_frame(f) for f in frames[lo:lo + window]])
-        return segmenter.infer_windows_vps_async(raw)
+        return raw, segmenter.infer_windows_vps_async(raw)
 
     offsets = list(range(0, total_frames, window))
     pending: deque = deque()
@@ -69,13 +187,14 @@ def run_query_tube_vps(
         while next_i < len(offsets) and len(pending) < max(pipeline_depth, 1):
             pending.append(dispatch(offsets[next_i]))
             next_i += 1
+        raw, handle = pending.popleft()
         outputs, prev_embds = segmenter.finish_windows_vps(
-            pending.popleft(), window, prev_embds=prev_embds,
+            handle, window, prev_embds=prev_embds,
             chain_windows=chain_windows, return_embds=True)
         if not chain_windows:
             prev_embds = None
-        for out in outputs:
-            rles, tids = [], []
+        for img, out in zip(raw, outputs):
+            rles, tids, vis_masks = [], [], []
             for seg_id, feat in out["query_feats"].items():
                 if seg_id not in object_list:
                     object_list.append(seg_id)
@@ -85,12 +204,16 @@ def run_query_tube_vps(
                     "query_feat": np.asarray(feat, np.float32),
                     "cls_id": int(seg_id % INSTANCE_OFFSET),
                 }
-                rle = rle_codec.encode(
-                    (out["pan_results"] == seg_id).astype(np.uint8))
+                mask = (out["pan_results"] == seg_id).astype(np.uint8)
+                rle = rle_codec.encode(mask)
                 rle["class_id"] = seg_id % INSTANCE_OFFSET
                 rles.append(rle)
                 tids.append(tid)
+                vis_masks.append(mask)
             results.append((frame_id + 1, rles, tids))
+            if save_images:
+                save_tracking_overlay(save_root, frame_id + 1, img, vis_masks,
+                                      tids)
             frame_id += 1
 
     data_io.write_masks_txt(

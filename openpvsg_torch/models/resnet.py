@@ -1,5 +1,9 @@
-"""ResNet backbone (Bottleneck, "pytorch style": the stride sits on the 3x3
-conv), the port of ``openpvsg_tpu/models/resnet.py``.
+"""ResNet backbone ("pytorch style": the stride sits on the 3x3 conv), the
+port of ``openpvsg_tpu/models/resnet.py``: Bottleneck blocks for depths
+26/50/101 (the segmenters, the tracker's appearance encoder) and torchvision
+BasicBlocks for 18/34 (the appearance zoo's resnet18/34 entries). The
+appearance encoder cuts the network after ``num_stages`` stages, with the
+first block of each stage at ``stage_strides``.
 
 Module names follow the flax tree (``conv1``, ``bn1.bn``, ``layer1_0.conv2``,
 ``layer2_0.downsample_conv``, ...) so weights convert by a mechanical walk
@@ -25,7 +29,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 # 26 = one bottleneck per stage (test/debug scale)
-STAGE_BLOCKS = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+STAGE_BLOCKS = {18: (2, 2, 2, 2), 26: (1, 1, 1, 1), 34: (3, 4, 6, 3),
+                50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+# depths built from BasicBlock (two 3x3 convs, expansion 1)
+BASIC_DEPTHS = (18, 34)
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax: ra = momentum * ra + (1 - momentum) * batch
 
@@ -112,13 +119,40 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+class BasicBlock(nn.Module):
+    """torchvision's BasicBlock (resnet18/34): two 3x3 convs, expansion 1."""
+
+    def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
+                 norm: str, train: bool = False):
+        super().__init__()
+        bias = norm == "folded"
+        self.conv1 = _conv(cin, planes, 3, stride, bias=bias)
+        self.bn1 = Norm(norm, planes, train)
+        self.conv2 = _conv(planes, planes, 3, bias=bias)
+        self.bn2 = Norm(norm, planes, train)
+        if downsample:
+            self.downsample_conv = _conv(cin, planes, 1, stride, bias=bias)
+            self.downsample_bn = Norm(norm, planes, train)
+        self.has_downsample = downsample
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x
+        if self.has_downsample:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
+
+
 class ResNet(nn.Module):
-    """Returns the stage outputs at strides 4/8/16/32 (channels
-    256/512/1024/2048), channels last."""
+    """Returns the outputs of the stages in ``out_indices`` (strides
+    4/8/16/32 with the default ``stage_strides``; channels 256/512/1024/2048
+    for the Bottleneck depths, 64/128/256/512 for 18/34), channels last."""
 
     def __init__(self, depth: int = 50, norm: str = "frozen_bn",
                  out_indices: Tuple[int, ...] = (0, 1, 2, 3),
-                 train: bool = False):
+                 train: bool = False, num_stages: int = 4,
+                 stage_strides: Tuple[int, ...] = (1, 2, 2, 2)):
         super().__init__()
         if depth not in STAGE_BLOCKS:
             raise ValueError(f"ResNet depth {depth} is not ported "
@@ -128,16 +162,21 @@ class ResNet(nn.Module):
         self.conv1 = _conv(3, 64, 7, 2, bias=bias)
         self.bn1 = Norm(norm, 64, train)
         self.block_names: List[List[str]] = []
+        basic = depth in BASIC_DEPTHS
+        block_cls, expansion = (BasicBlock, 1) if basic else (Bottleneck, 4)
         cin, planes = 64, 64
-        for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+        for stage, n_blocks in enumerate(STAGE_BLOCKS[depth][:num_stages]):
             names = []
             for b in range(n_blocks):
                 name = f"layer{stage + 1}_{b}"
-                stride = 1 if (stage == 0 or b > 0) else 2
-                self.add_module(name, Bottleneck(cin, planes, stride,
-                                                 downsample=b == 0, norm=norm,
-                                                 train=train))
-                cin = planes * 4
+                stride = stage_strides[stage] if b == 0 else 1
+                # a BasicBlock stage of stride 1 keeps 64 channels: no
+                # projection
+                down = b == 0 and not (basic and stage == 0 and stride == 1)
+                self.add_module(name, block_cls(cin, planes, stride,
+                                                downsample=down, norm=norm,
+                                                train=train))
+                cin = planes * expansion
                 names.append(name)
             self.block_names.append(names)
             planes *= 2

@@ -1,7 +1,8 @@
 """ctypes binding of the in-repo C++ host library (``native/pvsg_native.cpp``):
 the RLE codec of ``masks.txt`` (encode, decode, area, IoU, string <-> run
-counts), the rectangular Hungarian solver behind the MinVIS stitch, and the
-one-pass (gt, pred) IoU matrix of stage 3's tube matching.
+counts), the rectangular Hungarian solver behind the MinVIS stitch, LAPJV
+with a cost limit (the tracker's association), and the one-pass (gt, pred)
+IoU matrix of stage 3's tube matching and the MOTS metrics.
 
 The library is compiled with g++ into the port's own build directory
 (``openpvsg_torch/build/native/``) at first use. Sharing the C++ source with
@@ -89,12 +90,53 @@ def get_lib():
         lib.pairwise_mask_iou.argtypes = [
             i32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
             ctypes.POINTER(ctypes.c_double)]
+        lib.lapjv.restype = ctypes.c_double
+        lib.lapjv.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+            ctypes.c_double, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
         lib.hungarian.restype = ctypes.c_int
         lib.hungarian.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         _lib = lib
         return _lib
+
+
+def lapjv(cost: np.ndarray, cost_limit: float = np.inf):
+    """lap.lapjv-compatible assignment with a cost limit: (total_cost, x, y)
+    with x[i] the column matched to row i (or -1) and y[j] the row matched
+    to column j (or -1). Matches costing more than ``cost_limit`` are left
+    unassigned (reference: models/unitrack/core/association/matching.py:29-40
+    with extend_cost=True)."""
+    cost = np.ascontiguousarray(cost, dtype=np.float64)
+    nr, nc = cost.shape
+    if nr == 0 or nc == 0:
+        return 0.0, -np.ones(nr, dtype=np.int32), -np.ones(nc, dtype=np.int32)
+    lib = get_lib()
+    if lib is not None:
+        x = np.empty(nr, dtype=np.int32)
+        y = np.empty(nc, dtype=np.int32)
+        total = lib.lapjv(
+            nr, nc, cost.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            float(cost_limit),
+            x.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            y.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+        return float(total), x, y
+    # scipy on the same padded square matrix
+    from scipy.optimize import linear_sum_assignment as lsa
+
+    n = nr + nc
+    pad = cost_limit / 2.0 if np.isfinite(cost_limit) else cost.max() + 1.0
+    big = np.full((n, n), pad, dtype=np.float64)
+    big[:nr, :nc] = cost
+    big[nr:, nc:] = 0.0
+    x = -np.ones(nr, dtype=np.int32)
+    y = -np.ones(nc, dtype=np.int32)
+    for i, j in zip(*lsa(big)):
+        if i < nr and j < nc:
+            x[i], y[j] = j, i
+    return float(sum(cost[i, x[i]] for i in range(nr) if x[i] >= 0)), x, y
 
 
 def linear_sum_assignment(cost: np.ndarray):

@@ -234,3 +234,140 @@ def random_relation_state_dict(cfg: RelationHeadConfig, seed: int
             t = torch.zeros(shape)
         out[key] = t
     return out
+
+
+def appearance_expected_shapes(tracker_cfg) -> Dict[str, tuple]:
+    """{state-dict key: shape} of the appearance encoder that
+    ``resolve_appearance_spec(tracker_cfg)`` names, built on the meta
+    device."""
+    from openpvsg_torch.tracker.appearance import (make_appearance_model,
+                                                   resolve_appearance_spec)
+
+    depth, model_type, remove_layers = resolve_appearance_spec(tracker_cfg)
+    with torch.device("meta"):
+        model = make_appearance_model(depth=depth, model_type=model_type,
+                                      remove_layers=remove_layers)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def appearance_state(state: Mapping[str, torch.Tensor], tracker_cfg
+                     ) -> Dict[str, torch.Tensor]:
+    """A ResNet state dict in the port's names (all four stages, as a
+    torchvision checkpoint has them) -> the appearance encoder's: the stages
+    the encoder removed are dropped (the reference's ``modify
+    (remove_layers)``); any other key missing or left over, or a shape that
+    does not fit, raises."""
+    want = appearance_expected_shapes(tracker_cfg)
+    kept_stages = {k.split("_", 1)[0] for k in want if k.startswith("layer")}
+    state = {k: v for k, v in state.items()
+             if not k.startswith("layer") or k.split("_", 1)[0] in kept_stages}
+    _check_keys(state, want, "state dict")
+    bad = [(k, tuple(state[k].shape), s) for k, s in want.items()
+           if tuple(state[k].shape) != s]
+    if bad:
+        raise ValueError(f"shape mismatches {bad[:8]}")
+    return dict(state)
+
+
+def appearance_from_jax_params(variables: Mapping, tracker_cfg
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax variables (``params`` and ``batch_stats``) of the JAX package's
+    appearance encoder (``openpvsg_tpu.tracker.appearance
+    .make_appearance_model``, or ``train.checkpoint
+    .convert_torchvision_resnet``'s whole-ResNet tree) -> a float32 state
+    dict of the port's encoder for ``tracker_cfg``."""
+    state: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(coll, {})):
+            key, t = _convert_leaf(path, value)
+            state[key] = t
+    try:
+        return appearance_state(state, tracker_cfg)
+    except ValueError as e:
+        raise ValueError(f"appearance_from_jax_params: {e}") from None
+
+
+def random_appearance_state_dict(tracker_cfg, seed: int
+                                 ) -> Dict[str, torch.Tensor]:
+    """Random float32 weights of the appearance encoder from an explicit
+    ``torch.Generator``: conv weights ~ N(0, 2/fan_in) (He, so the features
+    keep their scale through the cut ResNet), BN scales 1 and biases 0,
+    running mean 0 and variance 1 plus noise."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, shape in appearance_expected_shapes(tracker_cfg).items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight" and len(shape) >= 2:
+            t = torch.randn(shape, generator=gen) * math.sqrt(2.0 / math.prod(shape[1:]))
+        elif leaf == "weight":
+            t = torch.ones(shape)
+        elif leaf == "running_var":
+            t = 1.0 + 0.1 * torch.rand(shape, generator=gen)
+        else:
+            t = torch.zeros(shape)
+        out[key] = t
+    return out
+
+
+def convert_torchvision_resnet(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet state dict (no prefix; tensors or arrays) -> the
+    same weights in the port's ResNet names (``layer1.0.conv1`` ->
+    ``layer1_0.conv1``, ``bn1`` -> ``bn1.bn``, ``downsample.0/1`` ->
+    ``downsample_conv`` / ``downsample_bn.bn``), float32; ``fc`` and
+    ``num_batches_tracked`` are dropped. The port's copy of
+    ``openpvsg_tpu/train/checkpoint.py:294``, without the flax layout."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "fc" or parts[-1] == "num_batches_tracked":
+            continue
+        scope, rest = [], parts
+        if parts[0].startswith("layer"):
+            scope, rest = [f"{parts[0]}_{parts[1]}"], parts[2:]
+            if rest[0] == "downsample":
+                rest = ["downsample_conv" if rest[1] == "0" else "downsample_bn"] + rest[2:]
+        if rest[0].startswith(("bn", "downsample_bn")):
+            rest = [rest[0], "bn"] + rest[1:]
+        out[".".join(scope + rest)] = torch.from_numpy(
+            np.array(value, dtype=np.float32, copy=True))
+    return out
+
+
+def convert_unitrack_checkpoint(raw: Mapping, model_type: str
+                                ) -> Dict[str, torch.Tensor]:
+    """Checkpoint surgery for the UniTrack appearance zoo (reference:
+    models/unitrack/model/model.py:40-147): per-entry key renames onto a
+    plain torchvision ResNet state dict, then ``convert_torchvision_resnet``.
+    Keys that do not map (projection heads etc.) are dropped: the
+    reference's partial_load semantics. The port's copy of
+    ``openpvsg_tpu/train/checkpoint.py:305``."""
+    sd = {}
+    for k, v in raw.items():
+        nk = None
+        if model_type == "crw":
+            k2 = k
+            if "conv1.1.weight" in k2 or "conv2.1.weight" in k2:
+                k2 = k2.replace(".1.weight", ".weight")
+            nk = k2.replace("encoder.model.", "") if "encoder.model" in k2 else k2
+            if "head" in nk:
+                nk = None
+        elif model_type == "uvc":
+            if "gray_encoder" in k:
+                nk = k.replace("module.gray_encoder.", "")
+        elif model_type == "timecycle":
+            if "encoderVideo" in k:
+                nk = k.replace("module.encoderVideo.", "")
+                v = np.asarray(v)
+                if v.ndim == 5:  # inflated 3-D conv -> squeeze the T tap
+                    v = v.squeeze(2)
+        elif model_type in ("mocov2", "moco-v1", "moco-v2"):
+            if "module.encoder_q" in k:
+                nk = k.replace("module.encoder_q.", "")
+        elif model_type in ("byol", "vince"):
+            if "feature_extractor" in k:
+                nk = k.replace("feature_extractor.module.model.", "")
+        else:  # ssl bundles / plain torchvision: keys already bare
+            nk = k
+        if nk is not None and not nk.startswith(("fc.", "head")):
+            sd[nk] = v
+    return convert_torchvision_resnet(sd)

@@ -26,6 +26,18 @@ TF32 off, the preset's ``samples_per_gpu`` clips of 2 384x480 frames) after
 two warm-up steps: the step's wall time, device busy time and idle share,
 the host LAP's time, the device time by kernel family and the top kernels.
 
+With ``--ips`` it instead profiles IPS stage 2 as ``chip_smoke.py``'s
+``stage2_ips`` phase runs it (``mask2former_ips`` at full width, bf16
+segmenter, float32 ``imagenet50 s3`` appearance encoder, random weights
+from the seed): one IPS batch (8 360x640 frames through
+``infer_frames_ips_async`` and ``package_ips``) after a warm-up batch, and
+one tracked frame of the tracker phase's video (frame 60 of its window, the
+tracker having run the 59 before): its appearance extraction and its
+reconsdot cost each in a window of their own, then the whole ``update``.
+For each: wall time, device busy time and idle share, time by kernel family
+and the top kernels; for the update also its host milliseconds (wall less
+the two device calls' walls).
+
 With ``--relation`` it instead profiles the relation head
 (``relation_head('transformer')`` at full width, float32, TF32 off, random
 weights from the seed): one train step of a video at the largest training
@@ -38,6 +50,7 @@ the top kernels.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -270,6 +283,72 @@ def profile_relation(torch, np, seed, card):
     return 0
 
 
+def profile_ips(torch, np, seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import gt_detections, ips_frames, tracker_video
+    from openpvsg_torch.config import TrackerConfig, mask2former_ips
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.kernels import build
+    from openpvsg_torch.tracker import matching
+    from openpvsg_torch.tracker.appearance import extract_object_embeddings
+    from openpvsg_torch.tracker.tracker import MaskAssociationTracker
+    from openpvsg_torch.weights import random_appearance_state_dict, random_state_dict
+
+    build.build()
+    cfg = dataclasses.replace(mask2former_ips().model, object_mask_thr=0.0,
+                              iou_thr=0.1)
+    seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+    frames = ips_frames(np, seed, n=16)
+    seg.package_ips(seg.infer_frames_ips_async(frames[:8]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        seg.package_ips(seg.infer_frames_ips_async(frames[8:]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {"card": card, "ips_batch": "mask2former_ips",
+                                  "dtype": "bfloat16", "frames": 8, "frame_hw": [360, 640]})
+    del seg
+
+    tcfg = TrackerConfig()
+    tracker = MaskAssociationTracker(tcfg, random_appearance_state_dict(tcfg, seed))
+    vframes, vmasks, classes = tracker_video(np, seed, n_frames=60)
+    rng = np.random.default_rng([seed, 5000])
+    feats = {i: rng.standard_normal(256).astype(np.float32) for i in range(1, 21)}
+    for t in range(59):
+        _, m, qf = gt_detections(np, vmasks[t], classes, feats, rng)
+        tracker.update(vframes[t], m, qf)
+    _, m, qf = gt_detections(np, vmasks[59], classes, feats, rng)
+    tracks = tracker.tracked_stracks + tracker.lost_stracks
+    dets = [f.T for f in extract_object_embeddings(tracker.appearance_model,
+                                                   vframes[59], m)[0]]
+    torch.cuda.synchronize()
+    head = {"card": card, "tracked_frame": 60, "detections": len(m), "tracks": len(tracks)}
+    walls = {}
+    for part, fn in (
+            ("appearance", lambda: extract_object_embeddings(
+                tracker.appearance_model, vframes[59], m)),
+            ("reconsdot", lambda: matching.reconsdot_distance(
+                [t.curr_feat for t in tracks], dets, device=tracker.device))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[part] = time.perf_counter() - t0
+        summarize(torch, prof, walls[part], {**head, "part": part})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tracker.update(vframes[59], m, qf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {**head, "part": "update",
+                                  "host_ms": (wall - sum(walls.values())) * 1e3})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -283,6 +362,8 @@ def main(argv=None) -> int:
                     help="profile one stage-1 train step instead")
     ap.add_argument("--relation", action="store_true",
                     help="profile one relation train step and one eval video instead")
+    ap.add_argument("--ips", action="store_true",
+                    help="profile one IPS batch and one tracked frame instead")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -311,6 +392,8 @@ def main(argv=None) -> int:
         return profile_train(torch, np, args.seed, card.splitlines()[0])
     if args.relation:
         return profile_relation(torch, np, args.seed, card.splitlines()[0])
+    if args.ips:
+        return profile_ips(torch, np, args.seed, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

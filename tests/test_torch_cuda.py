@@ -551,3 +551,70 @@ def test_train_cli_runs_on_the_card_with_deterministic(dev, tmp_path):
         torch.use_deterministic_algorithms(False)
     assert out["steps"] == 2 and out["device"].startswith("cuda")
     assert all(np.isfinite(out["losses"])) and not any(out["launches"].values())
+
+
+def _tracker_case(seed=0, n=4, h=96, w=128):
+    """Frames and masks of a few moving boxes for the tracker on the card."""
+    rng = np.random.default_rng(seed)
+    frames, masks = [], []
+    for t in range(3):
+        frame = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        m = np.zeros((n, h, w), np.uint8)
+        for i in range(n):
+            y, x = 6 + 20 * i, 4 + 8 * t + 10 * i
+            m[i, y:y + 18, x:x + 30] = 1
+            frame[m[i] == 1] = rng.integers(60, 255, 3, dtype=np.uint8)
+        frames.append(frame)
+        masks.append(m)
+    return frames, masks
+
+
+def test_tracker_defaults_to_the_card(dev):
+    """A default MaskAssociationTracker puts its encoder and the detections'
+    pixel-feature sets on the card, and tracks."""
+    from openpvsg_torch.config import TrackerConfig
+    from openpvsg_torch.tracker.tracker import MaskAssociationTracker
+    from openpvsg_torch.weights import random_appearance_state_dict
+
+    cfg = TrackerConfig(appearance_depth=26)
+    tr = MaskAssociationTracker(cfg, random_appearance_state_dict(cfg, 0))
+    assert tr.device.type == "cuda"
+    assert {p.device.type for p in tr.appearance_model.parameters()} == {"cuda"}
+    frames, masks = _tracker_case()
+    qf = [{"query_feat": np.zeros(4, np.float32), "cls_id": 1}] * 4
+    for frame, m in zip(frames, masks):
+        out, n = tr.update(frame, m, qf)
+    assert sorted(t.track_id for t in out) == [1, 2, 3, 4] and n == 4
+    assert all(t.curr_feat.device.type == "cuda" for t in out)
+
+
+def test_tracker_device_work_on_the_card_matches_the_cpu_with_tf32_on(dev):
+    """The appearance features and the reconsdot cost on the card against
+    the CPU, with the caller's TF32 switched on: both run in IEEE float32
+    (1e-4 absolute), and the caller's settings come back."""
+    from openpvsg_torch.config import TrackerConfig
+    from openpvsg_torch.tracker.appearance import (extract_object_embeddings,
+                                                   make_appearance_model)
+    from openpvsg_torch.tracker.matching import reconsdot_distance
+    from openpvsg_torch.weights import random_appearance_state_dict
+
+    cfg = TrackerConfig(appearance_depth=26)
+    model = make_appearance_model(depth=26)
+    model.load_state_dict(random_appearance_state_dict(cfg, 1))
+    model.eval()
+    frames, masks = _tracker_case(seed=1)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        feats = {}
+        for name in ("cpu", "cuda"):
+            model.to(name)
+            a, va = extract_object_embeddings(model, frames[0], masks[0])
+            b, vb = extract_object_embeddings(model, frames[1], masks[1])
+            cost = reconsdot_distance([f.T for f in a], [f.T for f in b])
+            feats[name] = (a.cpu(), va.cpu(), cost)
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    assert torch.equal(feats["cpu"][1], feats["cuda"][1])
+    assert float((feats["cpu"][0] - feats["cuda"][0]).abs().max()) <= 1e-4
+    assert np.abs(feats["cpu"][2] - feats["cuda"][2]).max() <= 1e-4

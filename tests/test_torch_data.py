@@ -362,13 +362,17 @@ def test_config_json_reads_both_ways_and_refuses_unported_fields(tmp_path):
     got = tcfg.apply_overrides(tcfg.mask2former_vps(), tcfg.parse_set_args(sets))
     jcfg.save_config(want, path)
     assert tcfg.load_config_file(path) == got
-    for field, value in (("tracker", jcfg.TrackerConfig(track_buffer=30)),
-                         ("model", dataclasses.replace(jcfg.Mask2FormerConfig(),
-                                                       int8_weights=True))):
-        jcfg.save_config(dataclasses.replace(jcfg.mask2former_vps(), **{field: value}),
-                         path)
-        with pytest.raises(ValueError, match="track_buffer|int8_weights"):
-            tcfg.load_config_file(path)
+    # the tracker is ported: its non-default fields read as they were written
+    tracker = {"track_buffer": 30, "remove_layers": ("layer3", "layer4"),
+               "feat_size": (8, 16), "model_type": "crw"}
+    jcfg.save_config(dataclasses.replace(
+        jcfg.mask2former_vps(), tracker=jcfg.TrackerConfig(**tracker)), path)
+    assert tcfg.load_config_file(path).tracker == tcfg.TrackerConfig(**tracker)
+    jcfg.save_config(dataclasses.replace(
+        jcfg.mask2former_vps(),
+        model=dataclasses.replace(jcfg.Mask2FormerConfig(), int8_weights=True)), path)
+    with pytest.raises(ValueError, match="int8_weights"):
+        tcfg.load_config_file(path)
     with pytest.raises(KeyError, match="A12"):
         tcfg.get_config("mask2former_swin_vps")
 

@@ -304,3 +304,101 @@ def test_port_clis_load_no_jax(tmp_path):
         bad = sorted(m for m in loaded if m.split(".")[0] in FORBIDDEN)
         assert not bad, (name, bad)
     assert os.path.exists(os.path.join(work, "mask2former_vps", "epoch_1"))
+
+
+def test_ast_scan_covers_the_tracker_and_mot_metrics():
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for name in ("kalman", "tracks", "matching", "appearance", "zoo", "tracker",
+                 "variants", "tubes"):
+        assert os.path.join("openpvsg_torch", "tracker", f"{name}.py") in scanned
+    assert os.path.join("openpvsg_torch", "eval", "mot_metrics.py") in scanned
+
+
+def test_stage2_clis_load_no_jax(tmp_path):
+    """``python -m openpvsg_torch.tools.{prepare_query_tube_ips,
+    prepare_query_tube_vps,eval_mots}`` on the CPU at a tiny size, each in a
+    fresh interpreter that loads no jax, flax or openpvsg_tpu module."""
+    from openpvsg_torch.tools import make_synthetic_data
+
+    data, work = str(tmp_path / "data"), str(tmp_path / "work")
+    anno = make_synthetic_data.main(["--out", data, "--train-videos", "0",
+                                     "--val-videos", "1", "--frames", "2",
+                                     "--size", "32", "32"])
+    tiny = ["--set", "model.backbone.depth=26", "model.num_queries=8",
+            "model.num_things_classes=5", "model.num_stuff_classes=3",
+            "model.decoder.num_layers=1", "model.decoder.ffn_channels=32",
+            "model.pixel_decoder.encoder_layers=1",
+            "model.pixel_decoder.ffn_channels=32", "model.object_mask_thr=0.0",
+            "tracker.appearance_depth=26"]
+    common = ["--data-dir", data, "--anno-file", anno, "--work-dir", work,
+              "--split", "val"]
+    runs = [("prepare_query_tube_ips", common + ["--device", "cpu"] + tiny),
+            ("prepare_query_tube_vps", common + ["--device", "cpu", "--config",
+                                                 "mask2former_vps"] + tiny),
+            ("eval_mots", common)]
+    for name, args in runs:
+        out = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", f"openpvsg_torch.tools.{name}",
+             *args], cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (name, out.stderr[-2000:])
+        loaded = {ln.split("|")[-1].strip() for ln in out.stderr.splitlines()
+                  if ln.startswith("import time:")}
+        assert "openpvsg_torch.tools.common" in loaded
+        bad = sorted(m for m in loaded if m.split(".")[0] in FORBIDDEN)
+        assert not bad, (name, bad)
+    out_dir = os.path.join(work, "val_save_qf", "1000_synth0")
+    assert os.path.exists(os.path.join(out_dir, "query_feats.pickle"))
+
+
+def test_tracker_defaults_to_the_gpu():
+    """A default MaskAssociationTracker (and its embedding variant) raises
+    without a GPU instead of running on the CPU; device='cpu' builds, with
+    the appearance encoder on the CPU."""
+    from openpvsg_torch.config import TrackerConfig
+    from openpvsg_torch.tracker.tracker import MaskAssociationTracker
+    from openpvsg_torch.tracker.variants import EmbedAssociationTracker
+    from openpvsg_torch.weights import random_appearance_state_dict
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = TrackerConfig(appearance_depth=26)
+    state = random_appearance_state_dict(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MaskAssociationTracker(cfg, state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EmbedAssociationTracker(cfg)
+    tr = MaskAssociationTracker(cfg, state, device="cpu")
+    assert {p.device.type for p in tr.appearance_model.parameters()} == {"cpu"}
+
+
+def test_tracker_device_work_runs_in_ieee_float32(monkeypatch):
+    """The appearance encoder and the reconsdot cost run with TF32 off
+    whatever the caller set; the caller's settings come back after."""
+    from openpvsg_torch.config import TrackerConfig
+    from openpvsg_torch.tracker import matching
+    from openpvsg_torch.tracker.tracker import MaskAssociationTracker
+    from openpvsg_torch.weights import random_appearance_state_dict
+
+    def flags():
+        return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+    cfg = TrackerConfig(appearance_depth=26)
+    tr = MaskAssociationTracker(cfg, random_appearance_state_dict(cfg, 0), device="cpu")
+    seen = []
+    tr.appearance_model.register_forward_pre_hook(lambda *_: seen.append(flags()))
+    reconsdot = matching._reconsdot
+    monkeypatch.setattr(matching, "_reconsdot",
+                        lambda *a, **k: seen.append(flags()) or reconsdot(*a, **k))
+    masks = np.zeros((2, 32, 32), np.uint8)
+    masks[0, :16], masks[1, 16:] = 1, 1
+    qf = [{"query_feat": np.zeros(4, np.float32), "cls_id": 0}] * 2
+    saved = flags()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        frame = np.zeros((32, 32, 3), np.uint8)
+        tr.update(frame, masks, qf)
+        tr.update(frame, masks, qf)  # tracks and detections: the cost runs
+        assert seen == [(False, False)] * 3
+        assert flags() == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
