@@ -136,7 +136,33 @@ Phases, each printing one JSON line:
              segment or does not launch B1 and B2, when the card and the
              CPU disagree, or when a kernel disagrees with its plain
              version.
-12. the ``{"kernels": [...]}`` line, then the last line
+12. reference_model — the reference's Mask2Former (``mask2former_vps``
+             with the 6-layer MSDA pixel encoder: 8 heads, 3 levels, 4
+             points, FFN 1024; R-50, 9 decoder layers, 100 queries, 127
+             class logits), from torch's default TF32 settings: (a) a
+             synthetic state dict in mmdet 2.25's key layout from the seed,
+             written as a .pth, read by ``load_mmdet_checkpoint`` and
+             converted by ``convert_mmdet_mask2former`` (seconds of each;
+             the segmenter loads it strictly); (b) ``run_query_tube_vps``
+             on 16 360x480 frames, bf16, window 2, with those weights and
+             the launch counts zeroed just before and read just after:
+             frames/s, peak GiB, launches (B1 and B2 must launch), the MSDA
+             and the axial encoder alone at a window's shapes (device ms
+             from ``torch.profiler``, and CUDA events around one call),
+             B1 on the MSDA stride-8 output against ``fpn_stride4_plain``
+             (5e-2 of the scale, bf16) and B2 on the model's logits against
+             ``fusion_maps_plain`` (no mismatch); (c) the MSDA pixel decoder
+             in float32 on a 64x96 input, card against CPU (TF32 off): the
+             three levels within 1e-4 of their scale, ``mask_feature`` (B1's
+             float32 chain) within 2e-4; (d) ``SegmenterTrainer`` with
+             ``loss_sampling='points'`` (12544 points, oversampling 3,
+             importance 0.75) and ``split_thing_stuff``, float32, the
+             preset's 16 clips of 2 384x480 frames, 4 steps and a fifth
+             under ``torch.profiler``: median step ms of steps 2-4, host LAP
+             share, device busy ms and idle share, peak GiB, beside phase
+             ``train``'s dense axial numbers. It fails on a non-finite loss,
+             a kernel launched by training, or any failed check above.
+13. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -1763,6 +1789,345 @@ def run_stage2_ips(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
     return launches, fpn_rows, fusion_rows["smoke"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the reference's Mask2Former (MSDA encoder, mmdet import, points)
+# ---------------------------------------------------------------------------
+
+REF_CHAIN_TOL = 5e-2    # B1 in bf16 against the unfused chain, of max(1, scale)
+REF_ENCODER_TOL = 1e-4  # MSDA levels, card against CPU in float32, of max(1, scale)
+REF_FPN32_TOL = 2e-4    # B1's float32 chain tolerance (check_fpn), of max(1, scale)
+
+
+def reference_config(**kw):
+    """``mask2former_vps`` with the reference's MSDA pixel encoder (6
+    layers, 8 heads, 3 levels, 4 points, FFN 1024); keyword overrides of
+    the model config (for serving: ``object_mask_thr`` and ``iou_thr``)."""
+    from openpvsg_torch.config import mask2former_vps
+
+    model = mask2former_vps().model
+    pd = dataclasses.replace(model.pixel_decoder, encoder="msda")
+    return dataclasses.replace(model, pixel_decoder=pd, **kw)
+
+
+def synthetic_mmdet_sd(np, torch, seed, depth_blocks=(3, 4, 6, 3), num_classes=126,
+                       Q=100, C=256, enc_layers=6, dec_layers=9, heads=8, levels=3,
+                       points=4, enc_ffn=1024, dec_ffn=2048):
+    """A state dict in mmdet 2.25's Mask2Former key layout (R-50 backbone,
+    ``panoptic_head.pixel_decoder`` with the MSDA encoder,
+    ``panoptic_head.transformer_decoder``, ``mask_embed.{0,2,4}``), float32
+    tensors from the seed: weights N(0, 1/fan_in), norm scales 1, BN
+    statistics near (0, 1), embeddings N(0, 1), the offsets' bias mmcv's
+    directional grid plus noise (so locations fall between pixels)."""
+    from openpvsg_torch.models.pixel_decoder import msda_offset_bias
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def w(k, *shape, scale=None):
+        fan_in = math.prod(shape[1:])
+        arr = rng.standard_normal(shape, dtype=np.float32)
+        sd[k] = torch.from_numpy(arr * np.float32(scale or fan_in ** -0.5))
+
+    def zeros(k, n):
+        sd[k] = torch.zeros(n)
+
+    def norm(prefix, n, bn=False):
+        sd[f"{prefix}.weight"] = torch.ones(n)
+        zeros(f"{prefix}.bias", n)
+        if bn:
+            sd[f"{prefix}.running_mean"] = torch.from_numpy(
+                0.1 * rng.standard_normal(n, dtype=np.float32))
+            sd[f"{prefix}.running_var"] = torch.from_numpy(
+                1.0 + 0.1 * rng.random(n, dtype=np.float32))
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
+
+    def linear(prefix, out_f, in_f):
+        w(f"{prefix}.weight", out_f, in_f)
+        zeros(f"{prefix}.bias", out_f)
+
+    w("backbone.conv1.weight", 64, 3, 7, 7)
+    norm("backbone.bn1", 64, bn=True)
+    cin = 64
+    for s, (blocks, planes) in enumerate(zip(depth_blocks, (64, 128, 256, 512)), start=1):
+        for b in range(blocks):
+            p = f"backbone.layer{s}.{b}"
+            w(f"{p}.conv1.weight", planes, cin, 1, 1)
+            w(f"{p}.conv2.weight", planes, planes, 3, 3)
+            w(f"{p}.conv3.weight", planes * 4, planes, 1, 1)
+            for i, n in ((1, planes), (2, planes), (3, planes * 4)):
+                norm(f"{p}.bn{i}", n, bn=True)
+            if b == 0:
+                w(f"{p}.downsample.0.weight", planes * 4, cin, 1, 1)
+                norm(f"{p}.downsample.1", planes * 4, bn=True)
+            cin = planes * 4
+    pd = "panoptic_head.pixel_decoder"
+    for i, ch in enumerate((2048, 1024, 512)):
+        w(f"{pd}.input_convs.{i}.conv.weight", C, ch, 1, 1)
+        zeros(f"{pd}.input_convs.{i}.conv.bias", C)
+        norm(f"{pd}.input_convs.{i}.gn", C)
+    w(f"{pd}.level_encoding.weight", levels, C, scale=1.0)
+    grid = msda_offset_bias(heads, levels, points).astype(np.float32)
+    for li in range(enc_layers):
+        p = f"{pd}.encoder.layers.{li}"
+        a = f"{p}.attentions.0"
+        w(f"{a}.sampling_offsets.weight", heads * levels * points * 2, C, scale=0.01)
+        sd[f"{a}.sampling_offsets.bias"] = torch.from_numpy(
+            grid + rng.uniform(-0.5, 0.5, grid.shape).astype(np.float32))
+        w(f"{a}.attention_weights.weight", heads * levels * points, C, scale=0.01)
+        zeros(f"{a}.attention_weights.bias", heads * levels * points)
+        linear(f"{a}.value_proj", C, C)
+        linear(f"{a}.output_proj", C, C)
+        linear(f"{p}.ffns.0.layers.0.0", enc_ffn, C)
+        linear(f"{p}.ffns.0.layers.1", C, enc_ffn)
+        norm(f"{p}.norms.0", C)
+        norm(f"{p}.norms.1", C)
+    w(f"{pd}.lateral_convs.0.conv.weight", C, 256, 1, 1)
+    zeros(f"{pd}.lateral_convs.0.conv.bias", C)
+    norm(f"{pd}.lateral_convs.0.gn", C)
+    w(f"{pd}.output_convs.0.conv.weight", C, C, 3, 3)
+    zeros(f"{pd}.output_convs.0.conv.bias", C)
+    norm(f"{pd}.output_convs.0.gn", C)
+    linear(f"{pd}.mask_feature", C, C)
+    sd[f"{pd}.mask_feature.weight"] = sd[f"{pd}.mask_feature.weight"][:, :, None, None]
+    h = "panoptic_head"
+    for name in ("query_embed", "query_feat"):
+        w(f"{h}.{name}.weight", Q, C, scale=1.0)
+    w(f"{h}.level_embed.weight", levels, C, scale=1.0)
+    for li in range(dec_layers):
+        p = f"{h}.transformer_decoder.layers.{li}"
+        for a in (0, 1):
+            w(f"{p}.attentions.{a}.attn.in_proj_weight", 3 * C, C)
+            zeros(f"{p}.attentions.{a}.attn.in_proj_bias", 3 * C)
+            linear(f"{p}.attentions.{a}.attn.out_proj", C, C)
+        linear(f"{p}.ffns.0.layers.0.0", dec_ffn, C)
+        linear(f"{p}.ffns.0.layers.1", C, dec_ffn)
+        for n in range(3):
+            norm(f"{p}.norms.{n}", C)
+    norm(f"{h}.transformer_decoder.post_norm", C)
+    linear(f"{h}.cls_embed", num_classes + 1, C)
+    for j in (0, 2, 4):
+        linear(f"{h}.mask_embed.{j}", C, C)
+    return sd
+
+
+def profiled(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``, synchronized: (wall s,
+    device busy ms (the summed kernel time of one stream), idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, busy_us / 1e3, 1.0 - busy_us / 1e6 / wall
+
+
+def run_reference_model(torch, np, seed, wrappers, dense_train):
+    """The reference's Mask2Former at full width: (a) a synthetic mmdet
+    state dict written as a .pth, read by ``load_mmdet_checkpoint`` and
+    converted; (b) VPS stage 2 with those weights in bf16 (launch counts
+    zeroed just before, read just after; the MSDA and axial encoders timed
+    alone at a window's shapes; B1 and B2 in the model against their plain
+    versions); (c) the MSDA pixel decoder in float32 on the card against
+    the CPU; (d) 4 training steps with points and the thing/stuff split,
+    float32, beside ``dense_train`` (phase ``train``'s row). Returns (b)'s
+    launch counts."""
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.stages import run_query_tube_vps
+    from openpvsg_torch.kernels import fpn, fusion
+    from openpvsg_torch.models.axial_encoder import AxialPixelEncoder
+    from openpvsg_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+    from openpvsg_torch.train.checkpoint import (convert_mmdet_mask2former,
+                                                 load_mmdet_checkpoint)
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    t_phase = time.perf_counter()
+    problems = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": True})
+    cfg = reference_config(object_mask_thr=0.0, iou_thr=0.1)
+
+    # (a) import
+    sd = synthetic_mmdet_sd(np, torch, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mask2former_r50_msda.pth")
+        torch.save({"meta": {"mmdet_version": "2.25.0", "epoch": 8}, "state_dict": sd}, path)
+        t0 = time.perf_counter()
+        loaded = load_mmdet_checkpoint(path)
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = convert_mmdet_mask2former(loaded, cfg)
+    convert_s = time.perf_counter() - t0
+    seg = SegmenterInference(cfg, state, dtype=torch.bfloat16)  # load_state_dict(strict=True)
+    n_params = sum(t.numel() for k, t in state.items() if not k.endswith(("running_mean",
+                                                                           "running_var")))
+    emit({"phase": "reference_model", "part": "import", "mmdet_keys": len(sd),
+          "port_keys": len(state), "params": n_params, "load_pth_s": load_s,
+          "convert_s": convert_s, "strict": True})
+    del sd, loaded
+
+    # (b) serving
+    n_frames = 16
+    frames = list(synthetic_frames(np, n_frames, 360, 480, seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_query_tube_vps(seg, frames[:4], os.path.join(tmp, "warm"), window=2)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_tubes = run_query_tube_vps(seg, frames, os.path.join(tmp, "vid"), window=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(tmp, "vid", "quantitive", "masks.txt")) as f:
+            lines = f.read().splitlines()
+    # one window's tensors: encoders timed alone, B1 and B2 against plain
+    model = seg.model
+    x = torch.from_numpy(np.stack(frames[:2])).cuda()
+    x = (x.float() - seg._mean) / seg._std
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 24)).to(torch.bfloat16)
+    pdec = model.pixel_decoder
+    with torch.no_grad():
+        feats = model.backbone(x)
+        projs = [getattr(pdec, f"input_conv_{i}")(feats[3 - i]) for i in range(3)]
+        axial = AxialPixelEncoder(mask2former_vps().model.pixel_decoder).cuda().to(
+            torch.bfloat16).eval()
+        # device ms from the profiler (the summed kernel time of one call);
+        # CUDA events around one call on an idle device include the host's
+        # launches, which a queue of back-to-back calls cannot hide here:
+        # CUDA's launch queue fills before the device drains it
+        encoders = {}
+        for name, fn in (("msda", lambda: pdec._msda_encoder(projs)),
+                         ("axial", lambda: axial(projs))):
+            fn()
+            wall_s, busy_ms, _ = profiled(torch, fn)
+            encoders[name] = {"device_ms": busy_ms, "call_ms": call_ms(torch, fn, reps=5)}
+        outs = pdec._msda_encoder(projs)
+        chain = fpn.fpn_stride4(feats[0], outs[-1], pdec.fpn_params(), num_groups=32,
+                                eps=1e-6)
+        chain_ref = fpn.fpn_stride4_plain(feats[0], outs[-1], pdec.fpn_params(),
+                                          num_groups=32, eps=1e-6)
+        cls, low, _ = seg.forward_frames(np.stack(frames[:2]))
+        probs = torch.softmax(cls.float(), -1)
+        keep = (probs.argmax(-1) != cfg.num_classes) & (probs.amax(-1) > cfg.object_mask_thr)
+        scores = torch.where(keep, probs.amax(-1), torch.full_like(probs[..., 0], float("-inf")))
+        got = fusion.fusion_maps(low.float().contiguous(), scores, (384, 480), (360, 480))
+        ref = fusion.fusion_maps_plain(low.float().contiguous(), scores, (360, 480))
+    chain_scale = max(1.0, float(chain_ref.float().abs().max()))
+    chain_err = max_abs(chain, chain_ref)
+    fusion_mismatch = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    row_b = {"frames": n_frames, "frame_hw": [360, 480], "window": 2, "dtype": "bfloat16",
+             "seconds": wall, "frames_per_s": n_frames / wall, "tubes": n_tubes,
+             "masks_txt_lines": len(lines), "peak_gib": peak, "launches": launches,
+             "msda_encoder_device_ms_per_window": encoders["msda"]["device_ms"],
+             "msda_encoder_call_ms_per_window": encoders["msda"]["call_ms"],
+             "axial_encoder_device_ms_per_window": encoders["axial"]["device_ms"],
+             "axial_encoder_call_ms_per_window": encoders["axial"]["call_ms"],
+             "encoder_levels": [list(p.shape[1:3]) for p in projs],
+             "b1_in_model_max_abs_err": chain_err,
+             "b1_in_model_tol": REF_CHAIN_TOL * chain_scale,
+             "b2_in_model_mismatches": fusion_mismatch}
+    emit({"phase": "reference_model", "part": "serving", **row_b})
+    if not lines:
+        problems.append("masks.txt is empty")
+    if any(v == 0 for v in launches.values()):
+        problems.append(f"a kernel of the MSDA serving path never launched: {launches}")
+    if chain_err > REF_CHAIN_TOL * chain_scale:
+        problems.append(f"B1 on the MSDA output disagrees with its plain version: {chain_err}")
+    if fusion_mismatch:
+        problems.append(f"B2 on the model's logits disagrees with its plain version: "
+                        f"{fusion_mismatch}")
+    del seg, model, pdec, axial, feats, projs, outs, x
+
+    # (c) the MSDA pixel decoder, float32, card against CPU (TF32 off)
+    torch.backends.cudnn.allow_tf32 = False
+    pd_state = {k[len("pixel_decoder."):]: v for k, v in state.items()
+                if k.startswith("pixel_decoder.")}
+    gen = torch.Generator().manual_seed(seed)
+    small = [torch.randn((1, 64 // s, 96 // s, c), generator=gen)
+             for s, c in zip((4, 8, 16, 32), (256, 512, 1024, 2048))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        dec = MSDeformAttnPixelDecoder(cfg.pixel_decoder)
+        dec.load_state_dict(pd_state, strict=True)
+        dec = dec.to(dev).eval()
+        with torch.no_grad():
+            mf, levels = dec([f.to(dev) for f in small])
+        outs[dev] = [t.float().cpu() for t in (*levels, mf)]
+    errs = [max_abs(a, b) for a, b in zip(outs["cuda"], outs["cpu"])]
+    scales = [max(1.0, float(b.abs().max())) for b in outs["cpu"]]
+    row_c = {"input": [1, 64, 96], "dtype": "float32",
+             "levels_max_abs_err": errs[:3], "mask_feature_max_abs_err": errs[3],
+             "scales": scales}
+    row_c["ok"] = (all(e <= REF_ENCODER_TOL * s for e, s in zip(errs[:3], scales[:3]))
+                   and errs[3] <= REF_FPN32_TOL * scales[3])
+    emit({"phase": "reference_model", "part": "card_vs_cpu", **row_c})
+    if not row_c["ok"]:
+        problems.append(f"the MSDA pixel decoder on the card disagrees with the CPU: {row_c}")
+    torch.backends.cudnn.allow_tf32 = True
+    del state, pd_state
+
+    # (d) training: points, split, float32
+    pvsg = mask2former_vps()
+    tcfg = pvsg.train
+    tr_cfg = reference_config(loss_sampling="points", split_thing_stuff=True)
+    clips = tcfg.samples_per_gpu
+    batch = train_batch(np, clips, tr_cfg.num_frames, (360, 480), (384, 480), 20,
+                        tr_cfg.num_classes, seed)
+    before = launch_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = SegmenterTrainer(tr_cfg, tcfg, steps_per_epoch=1000, seed=seed)
+    losses, step_ms, lap_ms = [], [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(logs["loss"])
+        lap_ms.append(trainer.last_timings["host_lap_s"] * 1e3)
+    wall, busy_ms, idle = profiled(torch, lambda: trainer.step(batch))
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    during = {k: v - before[k] for k, v in launch_counts(wrappers).items()}
+    med = statistics.median(step_ms[1:])
+    stuff_q = trainer.last_assigned[..., -tr_cfg.num_stuff_classes:]
+    row_d = {"config": "mask2former_vps + msda, points, split_thing_stuff",
+             "dtype": "float32", "clips": clips, "frames_per_clip": tr_cfg.num_frames,
+             "padded_hw": [384, 480], "num_points": tr_cfg.num_points,
+             "oversample_ratio": tr_cfg.oversample_ratio,
+             "importance_sample_ratio": tr_cfg.importance_sample_ratio,
+             "steps": 4, "losses": losses, "step_ms": step_ms,
+             "step_ms_median_2_4": med,
+             "host_lap_share": statistics.median(lap_ms[1:]) / med,
+             "profiled_step_ms": wall * 1e3, "device_busy_ms": busy_ms,
+             "device_idle_share": idle, "peak_gib": peak_train,
+             "frames_per_s": clips * tr_cfg.num_frames / (med / 1e3),
+             "stuff_queries_assigned": int((stuff_q >= 0).sum()),
+             "launches": during,
+             "dense_axial_step_ms_median": dense_train["step_ms_median_2_6"],
+             "dense_axial_host_lap_share": dense_train["host_lap_share"],
+             "dense_axial_peak_gib": dense_train["peak_gib"]}
+    emit({"phase": "reference_model", "part": "train", **row_d})
+    if not all(np.isfinite(losses)):
+        problems.append(f"a points-mode loss is not finite: {losses}")
+    if any(during.values()):
+        problems.append(f"points-mode training launched a kernel: {during}")
+    del trainer
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "reference_model", "ok": not problems, "seconds": seconds})
+    if problems:
+        fail("reference_model: " + "; ".join(problems))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1835,7 +2200,7 @@ def main(argv=None) -> int:
     emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": True})
     before = launch_counts(wrappers)
     check_train_reference(torch, np, args.seed)
-    run_train(torch, np, args.seed)
+    dense_train = run_train(torch, np, args.seed)
     during = {k: v - before[k] for k, v in launch_counts(wrappers).items()}
     emit({"phase": "train_launches", "launches": during})
     if any(during.values()):
@@ -1860,7 +2225,12 @@ def main(argv=None) -> int:
     ips2_launches, ips2_fpn, ips2_fusion = run_stage2_ips(
         torch, np, args.seed, gen, dev, float(clock) * 1e6, wrappers)
 
-    # 12. the kernels line and the result
+    # 12. the reference's Mask2Former: mmdet import, MSDA serving (its launch
+    # counts are zeroed just before its run and read just after), the MSDA
+    # decoder card against CPU, points training
+    ref_launches = run_reference_model(torch, np, args.seed, wrappers, dense_train)
+
+    # 13. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -1889,6 +2259,7 @@ def main(argv=None) -> int:
                      ips_plain_ms=ips["plain_ms"], ips_bound_ms=ips["bound_ms"],
                      ips_library_ms=ips["library_ms"])
         ips2 = ips2_fusion if name == "fusion_maps" else ips2_fpn[(name, "bfloat16")]
+        entry.update(reference_model_launches=ref_launches[fn.__name__])
         entry.update(stage2_ips_launches=ips2_launches[fn.__name__],
                      stage2_ips_max_abs_err=ips2["max_abs_err"],
                      stage2_ips_ms=ips2["ms"], stage2_ips_plain_ms=ips2["plain_ms"])

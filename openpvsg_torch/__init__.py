@@ -4,17 +4,23 @@ H100.
 It mirrors the subpackage layout of ``openpvsg_tpu`` so each module's
 counterpart is found by its path:
 
-- ``openpvsg_torch.models``  — the Mask2Former VPS segmenter (ResNet, axial
-  pixel decoder, masked-attention decoder), panoptic fusion, and the
+- ``openpvsg_torch.models``  — the Mask2Former VPS segmenter (ResNet, the
+  axial or the reference's MSDA pixel encoder, masked-attention decoder),
+  panoptic fusion, and the
   relation head (``models.relation``: object encoders, pair proposal, four
   temporal heads, losses, pair and target helpers).
 - ``openpvsg_torch.kernels`` — hand-written CUDA kernels for Hopper
   (``csrc/*.cu``) with their plain-PyTorch versions, bound through ctypes.
 - ``openpvsg_torch.infer``   — segmenter inference (IPS and VPS), the
   stage-2 IPS and VPS runners and stage 3 (``run_rel_set``).
+- ``openpvsg_torch.ops``     — bilinear resize and the sampling primitives
+  (``grid_sample``, ``point_sample``, ``ms_deform_attn``, uncertainty-
+  sampled points).
 - ``openpvsg_torch.train``   — stage-1 segmenter training (Hungarian
-  assigner, dense loss, optimizer recipe, trainer) and stage-4 relation-head
-  training, with checkpoints of both trainers.
+  assigner, dense or point-sampled loss, the thing/stuff query split,
+  optimizer recipe, trainer) and stage-4 relation-head training, with
+  checkpoints of both trainers and the import of mmdet Mask2Former
+  checkpoints.
 - ``openpvsg_torch.eval``    — stage 3's tube matching, stage 5's R@K /
   mR@K evaluation (proxy and mask-grounded), PQ / VPQ and the MOTS
   tracking metrics.

@@ -5,10 +5,11 @@ and the ``config.json`` and ``--set key=value`` plumbing of the CLIs.
 
 The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults),
 so a configuration reads the same in both packages. The fields of modules
-not ported yet (Swin, the MSDA encoder, int8 weights, instance
-postprocessing) are left out: ``load_config_file`` reads a ``config.json``
-of the JAX package when each of them holds its JAX default and raises
-naming the first that does not. ``check_training_config`` refuses the
+not ported yet (Swin, int8 weights, instance postprocessing) are left out:
+``load_config_file`` reads a ``config.json`` of the JAX package when each of
+them holds its JAX default and raises naming the first that does not.
+``check_training_config`` accepts the dense and the reference's points
+objective, with or without the thing/stuff query split, and refuses the
 training values this port does not run yet, naming the ``ROADMAP.md`` item
 that ports them.
 """
@@ -41,9 +42,12 @@ class PixelDecoderConfig:
     out_channels: int = 256
     num_outs: int = 3
     encoder_layers: int = 6
-    encoder: str = "axial"  # only the axial encoder is ported
+    # 'axial': the dense encoder (the default); 'msda': the reference's
+    # multi-scale deformable attention, the one its checkpoints hold
+    encoder: str = "axial"
     num_heads: int = 8
     num_levels: int = 3
+    num_points: int = 4  # MSDA sampling points per head and level
     ffn_channels: int = 1024
     num_groups: int = 32  # GroupNorm groups
 
@@ -74,7 +78,8 @@ class Mask2FormerConfig:
     loss_dice_weight: float = 5.0
     bg_cls_weight: float = 0.1
     # 'dense': mask losses and matching costs over every stride-4 pixel;
-    # 'points': the reference's point-rend sampling (not ported)
+    # 'points': the reference's point-rend sampling (num_points uniform
+    # points for the costs, uncertainty-sampled points for the losses)
     loss_sampling: str = "dense"
     # 'auto' | 'hungarian' (host LAP) | 'lapjv' | 'greedy' (not ported)
     assigner: str = "auto"
@@ -90,8 +95,9 @@ class Mask2FormerConfig:
     # fusion thresholds (reference test cfg)
     object_mask_thr: float = 0.8
     iou_thr: float = 0.8
-    # head variants: split thing/stuff queries, focal classification loss,
-    # per-pixel semantic aux head
+    # head variants: split thing/stuff queries (the last num_stuff_classes
+    # queries take only stuff targets), focal classification loss (not
+    # ported), per-pixel semantic aux head (not ported)
     split_thing_stuff: bool = False
     focal_cls: bool = False
     focal_gamma: float = 2.0
@@ -276,7 +282,6 @@ PRESETS = {
 JAX_ONLY_FIELDS: Dict[str, Tuple[Any, str]] = {
     "model.backbone.swin_variant": ("tiny", "A12"),
     "model.pixel_decoder.strides": ([4, 8, 16, 32], "A12"),
-    "model.pixel_decoder.num_points": (4, "A12"),
     "model.pixel_decoder.fused_fpn": (False, "A4"),
     "model.int8_weights": (False, "A12"),
     "model.max_per_image": (100, "A6"),
@@ -396,20 +401,34 @@ def resolve_assigner(cfg: Mask2FormerConfig) -> str:
 def check_training_config(cfg: Mask2FormerConfig) -> None:
     """Raise ValueError for a training value this port does not run yet,
     whether or not the JAX package accepts it; the message names the
-    ROADMAP.md item. The knobs of the unported modes (points, focal, the
-    semantic head) are refused too, so that setting one never does nothing.
+    ROADMAP.md item. ``loss_sampling`` 'dense' or 'points' (with its
+    ``num_points``, ``oversample_ratio`` and ``importance_sample_ratio``)
+    and ``split_thing_stuff`` train. The combinations the JAX package
+    rejects (``openpvsg_tpu/train/segmenter.py:154-168``) raise its
+    errors first. The knobs of the unported modes (focal, the semantic
+    head) are refused too, so that setting one never does nothing.
     ``check_assigner_capacity`` (``openpvsg_tpu/train/segmenter.py:137``)
     guards LAPJV's N <= Q and comes with LAPJV."""
+    if cfg.loss_sampling not in ("dense", "points"):
+        raise ValueError(f"model.loss_sampling={cfg.loss_sampling!r}: "
+                         "'dense' or 'points'")
+    points = cfg.loss_sampling == "points"
+    if points and cfg.match_downsample > 1:
+        raise ValueError(
+            "model.match_downsample > 1 requires loss_sampling='dense' "
+            "(point-rend matching already subsamples; pooling on top of it "
+            "would double-approximate). Set model.loss_sampling='dense' or "
+            "model.match_downsample=1.")
+    if points and cfg.loss_layout == "target":
+        raise ValueError(
+            "model.loss_layout='target' requires loss_sampling='dense' "
+            "(point sampling needs the per-query layout). Set "
+            "model.loss_sampling='dense' or model.loss_layout='query'.")
     unported = {
-        "loss_sampling": (cfg.loss_sampling, "dense"),
-        "num_points": (cfg.num_points, 12544),
-        "oversample_ratio": (cfg.oversample_ratio, 3.0),
-        "importance_sample_ratio": (cfg.importance_sample_ratio, 0.75),
         "assigner": (resolve_assigner(cfg), "hungarian"),
         "match_downsample": (cfg.match_downsample, 1),
         "loss_layout": (cfg.loss_layout, "query"),
         "mask_logits_dtype": (cfg.mask_logits_dtype, "float32"),
-        "split_thing_stuff": (cfg.split_thing_stuff, False),
         "focal_cls": (cfg.focal_cls, False),
         "focal_gamma": (cfg.focal_gamma, 2.0),
         "focal_alpha": (cfg.focal_alpha, 0.25),

@@ -10,6 +10,11 @@ The recipe (reference: configs/mask2former/..._custom.py:163-191):
   lr_mult is 0.1, which also scales its decay
   schedule: linear warmup from warmup_ratio, x lr_gamma at each step epoch
 
+The objective is the configured one: dense or point-sampled
+(``loss_sampling``), with or without the thing/stuff query split
+(``split_thing_stuff``); ``SegmenterTrainer.loss`` computes it from the
+model's predictions.
+
 Groups and the decay mask are the JAX package's rules applied to the flax
 path of each parameter (``weights.flax_path``). torch's AdamW with those
 groups is optax's chain: its decoupled decay p *= 1 - lr * wd before the
@@ -30,6 +35,7 @@ from openpvsg_torch.config import (Mask2FormerConfig, TrainConfig,
                                    check_training_config)
 from openpvsg_torch.infer.segmenter import resolve_device
 from openpvsg_torch.models.mask2former import Mask2Former
+from openpvsg_torch.ops.sampling import uniform_draw
 from openpvsg_torch.train.assign import assignment_costs, lap_assign
 from openpvsg_torch.train.losses import mask2former_loss
 from openpvsg_torch.weights import flax_path, random_state_dict
@@ -159,7 +165,10 @@ class SegmenterTrainer:
     ``device="cpu"`` to train on the CPU. The forward and backward run in
     IEEE float32 with TF32 off, whatever the global settings, and leave
     those settings as they found them. ``state_dict`` (the port's float32
-    state dict) defaults to ``random_state_dict(cfg, seed)``. After each step
+    state dict) defaults to ``random_state_dict(cfg, seed)``. In points mode
+    every uniform draw (matching and loss points) comes from ``draw``, by
+    default ``generator``, a ``torch.Generator`` on the trainer's device
+    seeded with ``seed``; checkpoints save and restore its state. After each step
     ``last_assigned`` holds the (L, B, Q) assignment and ``last_timings``
     the host seconds blocked in the cost copy (``cost_wait_s``: it waits for
     the device to finish the forward and the costs) and spent in the host
@@ -187,6 +196,8 @@ class SegmenterTrainer:
         self.step_count = 0
         self._mean = torch.tensor(norm_mean, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(norm_std, dtype=torch.float32, device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.draw = uniform_draw(self.generator)
         self.last_assigned: Optional[np.ndarray] = None
         self.last_timings: Dict[str, float] = {}
 
@@ -214,24 +225,9 @@ class SegmenterTrainer:
             return self._loss_and_grads(batch)
 
     def _loss_and_grads(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        cfg = self.cfg
         images, gt_labels, gt_masks, gt_valid = self.device_batch(batch)
         cls_preds, mask_preds, _ = self.model(images)
-        weights = dict(cls_weight=cfg.loss_cls_weight,
-                       mask_weight=cfg.loss_mask_weight,
-                       dice_weight=cfg.loss_dice_weight)
-        costs = assignment_costs(cls_preds.detach(), mask_preds.detach(),
-                                 gt_labels, gt_masks, gt_valid, **weights)
-        t0 = time.perf_counter()
-        host_costs = costs.cpu().numpy()
-        t1 = time.perf_counter()
-        self.last_assigned = lap_assign(host_costs)
-        self.last_timings = {"cost_wait_s": t1 - t0,
-                             "host_lap_s": time.perf_counter() - t1}
-        loss, logs = mask2former_loss(
-            cls_preds, mask_preds, gt_labels, gt_masks, gt_valid,
-            cfg.num_classes, bg_cls_weight=cfg.bg_cls_weight,
-            assigned=self.last_assigned, **weights)
+        loss, logs = self.loss(cls_preds, mask_preds, gt_labels, gt_masks, gt_valid)
         logs["loss"] = loss
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
@@ -239,6 +235,34 @@ class SegmenterTrainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         return loss, logs
+
+    def loss(self, cls_preds, mask_preds, gt_labels, gt_masks, gt_valid
+             ) -> Tuple[torch.Tensor, Dict]:
+        """The configured objective of the model's predictions: the costs
+        on the device, their copy and the host LAP (timed into
+        ``last_timings``, the assignment kept in ``last_assigned``), then
+        ``mask2former_loss``; points draws from ``self.draw``."""
+        cfg = self.cfg
+        kw = dict(cls_weight=cfg.loss_cls_weight, mask_weight=cfg.loss_mask_weight,
+                  dice_weight=cfg.loss_dice_weight,
+                  num_points=cfg.num_points if cfg.loss_sampling == "points" else 0,
+                  draw=self.draw,
+                  num_stuff_queries=cfg.num_stuff_classes if cfg.split_thing_stuff else 0,
+                  num_things_classes=cfg.num_things_classes)
+        costs = assignment_costs(cls_preds.detach(), mask_preds.detach(),
+                                 gt_labels, gt_masks, gt_valid, **kw)
+        t0 = time.perf_counter()
+        host_costs = costs.cpu().numpy()
+        t1 = time.perf_counter()
+        self.last_assigned = lap_assign(host_costs, kw["num_stuff_queries"])
+        self.last_timings = {"cost_wait_s": t1 - t0,
+                             "host_lap_s": time.perf_counter() - t1}
+        return mask2former_loss(
+            cls_preds, mask_preds, gt_labels, gt_masks, gt_valid,
+            cfg.num_classes, bg_cls_weight=cfg.bg_cls_weight,
+            assigned=self.last_assigned,
+            oversample_ratio=cfg.oversample_ratio,
+            importance_sample_ratio=cfg.importance_sample_ratio, **kw)
 
     def apply_updates(self) -> None:
         """Clip the gradients by their global norm, then one AdamW step of

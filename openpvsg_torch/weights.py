@@ -163,12 +163,23 @@ def random_state_dict(cfg: Mask2FormerConfig, seed: int
                       ) -> Dict[str, torch.Tensor]:
     """Random float32 weights for ``Mask2Former(cfg)`` from an explicit
     ``torch.Generator``: weights ~ N(0, 1/fan_in), biases 0, norm scales 1,
-    embeddings ~ N(0, 1), BN running mean 0 and variance 1 plus noise."""
+    embeddings ~ N(0, 1), BN running mean 0 and variance 1 plus noise. The
+    MSDA layers start as flax starts them: ``sampling_offsets`` with a zero
+    weight and the directional grid as bias, ``attention_weights`` zero,
+    so that random weights sample around each reference point."""
+    from openpvsg_torch.models.pixel_decoder import msda_offset_bias
+
+    pd = cfg.pixel_decoder
+    offset_bias = torch.from_numpy(msda_offset_bias(
+        pd.num_heads, pd.num_levels, pd.num_points).astype(np.float32))
     gen = torch.Generator().manual_seed(seed)
     out = {}
     for key, shape in expected_shapes(cfg).items():
-        leaf = key.rsplit(".", 1)[-1]
-        if leaf == "weight" and len(shape) >= 2:
+        scope, leaf = key.rsplit(".", 1)
+        if scope.endswith(("_attn.sampling_offsets", "_attn.attention_weights")):
+            t = (offset_bias.clone() if key.endswith("sampling_offsets.bias")
+                 else torch.zeros(shape))
+        elif leaf == "weight" and len(shape) >= 2:
             fan_in = math.prod(shape[1:])
             t = torch.randn(shape, generator=gen) / math.sqrt(fan_in)
         elif leaf == "weight":

@@ -38,6 +38,16 @@ For each: wall time, device busy time and idle share, time by kernel family
 and the top kernels; for the update also its host milliseconds (wall less
 the two device calls' walls).
 
+With ``--reference`` it instead profiles the reference's Mask2Former as
+``chip_smoke.py``'s ``reference_model`` phase runs it (``mask2former_vps``
+with the MSDA pixel encoder, weights converted from its synthetic mmdet
+state dict): one stage-2 window (2 360x480 frames, bf16, forward, stitch
+and fusion) after a warm-up window, and one training step with
+``loss_sampling='points'`` and ``split_thing_stuff`` (float32, the preset's
+``samples_per_gpu`` clips of 2 384x480 frames) after two warm-up steps. For
+each: wall time, device busy time and idle share, time by kernel family and
+the top kernels.
+
 With ``--relation`` it instead profiles the relation head
 (``relation_head('transformer')`` at full width, float32, TF32 off, random
 weights from the seed): one train step of a video at the largest training
@@ -65,6 +75,8 @@ TOP = 15
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("fpn_", "B1 fpn (port kernel)"),
+    ("grid_sampler", "grid_sample (MSDA, points)"),
+    ("sort", "sort"),
     ("fusion_maps", "B2 fusion (port kernel)"),
     ("conv", "convolution (cuDNN)"),
     ("grad", "convolution (cuDNN)"),
@@ -233,6 +245,54 @@ def profile_train(torch, np, seed, card):
     return 0
 
 
+def profile_reference(torch, np, seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import (reference_config, synthetic_frames,
+                            synthetic_mmdet_sd, train_batch)
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.kernels import build
+    from openpvsg_torch.train.checkpoint import convert_mmdet_mask2former
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    build.build()
+    cfg = reference_config(object_mask_thr=0.0, iou_thr=0.1)
+    seg = SegmenterInference(cfg, convert_mmdet_mask2former(
+        synthetic_mmdet_sd(np, torch, seed), cfg), dtype=torch.bfloat16)
+    frames = synthetic_frames(np, 2, 360, 480, seed)
+    seg.infer_windows_vps(frames, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        seg.infer_windows_vps(frames, 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {"card": card, "window": "mask2former_vps + msda",
+                                  "frames": 2, "dtype": "bfloat16"})
+    del seg
+    pvsg = mask2former_vps()
+    tcfg = reference_config(loss_sampling="points", split_thing_stuff=True)
+    clips = pvsg.train.samples_per_gpu
+    batch = train_batch(np, clips, tcfg.num_frames, (360, 480), (384, 480), 20,
+                        tcfg.num_classes, seed)
+    trainer = SegmenterTrainer(tcfg, pvsg.train, steps_per_epoch=1000, seed=seed)
+    for _ in range(2):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {
+        "card": card, "train_step": "mask2former_vps + msda, points, split",
+        "dtype": "float32", "clips": clips, "frames": clips * tcfg.num_frames,
+        "host_lap_ms": trainer.last_timings["host_lap_s"] * 1e3,
+        "cost_wait_ms": trainer.last_timings["cost_wait_s"] * 1e3})
+    return 0
+
+
 def profile_relation(torch, np, seed, card):
     from torch.profiler import ProfilerActivity, profile
 
@@ -364,6 +424,8 @@ def main(argv=None) -> int:
                     help="profile one relation train step and one eval video instead")
     ap.add_argument("--ips", action="store_true",
                     help="profile one IPS batch and one tracked frame instead")
+    ap.add_argument("--reference", action="store_true",
+                    help="profile one MSDA window and one points train step instead")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -394,6 +456,8 @@ def main(argv=None) -> int:
         return profile_relation(torch, np, args.seed, card.splitlines()[0])
     if args.ips:
         return profile_ips(torch, np, args.seed, card.splitlines()[0])
+    if args.reference:
+        return profile_reference(torch, np, args.seed, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

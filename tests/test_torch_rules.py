@@ -2,6 +2,7 @@
 JAX, it runs on the GPU unless asked for the CPU, its kernel wrappers never
 fall back, and its weight converter refuses trees that do not fit."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -312,6 +313,53 @@ def test_ast_scan_covers_the_tracker_and_mot_metrics():
                  "variants", "tubes"):
         assert os.path.join("openpvsg_torch", "tracker", f"{name}.py") in scanned
     assert os.path.join("openpvsg_torch", "eval", "mot_metrics.py") in scanned
+
+
+def test_ast_scan_covers_the_sampling_ops():
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert os.path.join("openpvsg_torch", "ops", "sampling.py") in scanned
+
+
+def test_reference_model_clis_load_no_jax(tmp_path):
+    """The train CLI for one epoch and the test CLI with the reference's
+    model and objective (``encoder=msda``, ``loss_sampling=points``,
+    ``split_thing_stuff``) through ``--set`` alone, on the CPU at a tiny
+    size, each in a fresh interpreter that loads no jax, flax or
+    openpvsg_tpu module and ends its log with a ``summary:`` line."""
+    from openpvsg_torch.tools import make_synthetic_data
+    from openpvsg_torch.tools.common import parse_summary
+
+    data, work = str(tmp_path / "data"), str(tmp_path / "work")
+    make_synthetic_data.main(["--out", data, "--train-videos", "1", "--val-videos",
+                              "1", "--frames", "2", "--size", "32", "32"])
+    tiny = ["--set", "model.backbone.depth=26", "model.num_queries=8",
+            "model.num_things_classes=5", "model.num_stuff_classes=3",
+            "model.decoder.num_layers=1", "model.decoder.ffn_channels=32",
+            "model.pixel_decoder.encoder=msda", "model.pixel_decoder.encoder_layers=1",
+            "model.pixel_decoder.ffn_channels=32", "model.loss_sampling=points",
+            "model.num_points=64", "model.split_thing_stuff=true",
+            "data.train_scale=32,32", "data.crop_size=32,32", "train.samples_per_gpu=4"]
+    common = ["--config", "mask2former_vps", "--data-dir", data,
+              "--anno-file", os.path.join(data, "pvsg.json"), "--work-dir", work,
+              "--device", "cpu"]
+    for name, args in (("train", common + ["--epochs", "1"] + tiny),
+                       ("test", common + ["--eval", "PQ,VPQ"] + tiny)):
+        out = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", f"openpvsg_torch.tools.{name}",
+             *args], cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (name, out.stderr[-2000:])
+        loaded = {ln.split("|")[-1].strip() for ln in out.stderr.splitlines()
+                  if ln.startswith("import time:")}
+        assert {"openpvsg_torch.ops.sampling", "openpvsg_torch.tools.common"} <= loaded
+        bad = sorted(m for m in loaded if m.split(".")[0] in FORBIDDEN)
+        assert not bad, (name, bad)
+        summary = parse_summary(out.stderr)
+        assert summary, name
+    with open(os.path.join(work, "mask2former_vps", "config.json")) as f:
+        saved = json.load(f)
+    assert saved["model"]["pixel_decoder"]["encoder"] == "msda"
+    assert saved["model"]["loss_sampling"] == "points"
+    assert saved["model"]["split_thing_stuff"] is True
 
 
 def test_stage2_clis_load_no_jax(tmp_path):

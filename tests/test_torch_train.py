@@ -483,11 +483,10 @@ def test_checkpoint_round_trip_is_bitwise(jax_side, tmp_path, one_intra_op_threa
 
 
 @pytest.mark.parametrize("field,value", [
-    ("loss_sampling", "points"), ("loss_layout", "target"), ("assigner", "lapjv"),
+    ("loss_layout", "target"), ("assigner", "lapjv"),
     ("assigner", "greedy"), ("mask_logits_dtype", "bfloat16"),
-    ("match_downsample", 2), ("split_thing_stuff", True), ("focal_cls", True),
-    ("with_sem_seg", True), ("num_points", 4096), ("oversample_ratio", 2.0),
-    ("importance_sample_ratio", 0.5), ("focal_gamma", 1.0),
+    ("match_downsample", 2), ("focal_cls", True),
+    ("with_sem_seg", True), ("focal_gamma", 1.0),
     ("focal_alpha", 0.5), ("sem_seg_weight", 0.5)])
 def test_unported_training_values_raise(field, value):
     from openpvsg_torch.train.segmenter import SegmenterTrainer
