@@ -162,7 +162,35 @@ Phases, each printing one JSON line:
              share, device busy ms and idle share, peak GiB, beside phase
              ``train``'s dense axial numbers. It fails on a non-finite loss,
              a kernel launched by training, or any failed check above.
-13. the ``{"kernels": [...]}`` line, then the last line
+13. swin — the Swin-T segmenter (``mask2former_swin_vps``: Swin-T, 96
+             channels at stride 4, the axial pixel decoder on (96, 192, 384,
+             768), 9 decoder layers, 100 queries) and the trainer's options:
+             (a) B1's three launches and chain at Swin-T's stride-4 width,
+             ``f0 (2, 96, 120, 96)`` -> C 256, in float32 (TF32 off) and
+             bfloat16 against their plain versions at phase 3's tolerances
+             (each launch's ms, bound and ``addmm``'s ms); (b) the model in
+             float32 on a 2x64x64 input, card against CPU (as phase 4); (c)
+             ``run_query_tube_vps`` with it in bf16 (random weights from the
+             seed, ``object_mask_thr=0.0``, ``iou_thr=0.1``) on 16 360x480
+             frames, window 2, launch counts zeroed just before and read just
+             after (B1 and B2 must launch): frames/s, peak GiB, and whether a
+             rerun's ``masks.txt`` is byte-identical; (d) training, float32,
+             from torch's default TF32 settings: 4 full-width steps of 16
+             clips of 2 384x480 frames with the host Hungarian (median step
+             ms of steps 2-4, host LAP share, frames/s, peak GiB); one
+             step's costs solved by the host Hungarian and by LAPJV and
+             greedy on the card (each one's ms; LAPJV's assignment must
+             equal the host's); 4 steps of a trainer with LAPJV (median step
+             ms); and one step of the small model (phase 6's) per trainer
+             option (LAPJV, greedy, ``match_downsample`` 2, the target
+             layout, focal, the semantic head with ``gt_semantic``, bf16
+             mask logits) on the card and on the CPU: the same assignment,
+             the loss within 1e-3 (1e-2 with bf16 logits) relative and every
+             gradient within 1e-2 (5e-2) of its scale. Fails on any check
+             above, a non-finite loss, or a B1 or B2 launch in training.
+14. the ``{"kernels": [...]}`` line (since phase 13 with each kernel's
+   ``swin_launches`` and B1's Swin-shape error, ms, bound and library ms),
+   then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -258,13 +286,14 @@ def max_abs(a, b):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_fpn(torch, gen, dev, B=2, H=96, W=120, at="stage2"):
+def check_fpn(torch, gen, dev, B=2, H=96, W=120, at="stage2", Cin=256):
     """B1's launches and chain against their plain versions at (B, H, W)
-    stride-4 pixels of 256 channels; ``at`` names the path of that shape."""
+    stride-4 pixels of ``Cin`` backbone channels (256 for R-50 and the MSDA
+    level, 96 for Swin-T), C = 256; ``at`` names the path of that shape."""
     from openpvsg_torch.kernels import fpn
     from openpvsg_torch.ops.resize import resize_bilinear
 
-    Cin, C, Cout, G, eps = 256, 256, 256, 32, 1e-6
+    C, Cout, G, eps = 256, 256, 32, 1e-6
     H8, W8 = H // 2, W // 2
 
     def rnd(*shape, scale=1.0, shift=0.0):
@@ -366,7 +395,7 @@ def check_fpn(torch, gen, dev, B=2, H=96, W=120, at="stage2"):
                    "design": DESIGN[name] if dt == torch.bfloat16 else SIMT, "ok": ok}
             results[(name, dt_name)] = row
             emit({"phase": "kernel_vs_plain", "kernel": name, "dtype": dt_name,
-                  "at": at, "shape": [B, H, W, C], **row})
+                  "at": at, "shape": [B, H, W, C], "cin": Cin, **row})
             if not ok:
                 fail(f"{name} {dt_name} disagrees with its plain version: {row}")
         ref_max = float(chain_ref.float().abs().max())
@@ -382,7 +411,7 @@ def check_fpn(torch, gen, dev, B=2, H=96, W=120, at="stage2"):
                    torch, lambda: fpn.fpn_stride4_plain(f0, s8, p32, G, eps))}
         row["ok"] = err <= row["tol"] and row["deterministic"]
         emit({"phase": "kernel_vs_plain", "kernel": "fpn_stride4 (chain)",
-              "dtype": dt_name, "at": at, "shape": [B, H, W, C], **row})
+              "dtype": dt_name, "at": at, "shape": [B, H, W, C], "cin": Cin, **row})
         if not row["ok"]:
             fail(f"fpn_stride4 {dt_name} disagrees with the module chain or "
                  f"with itself: {row}")
@@ -545,7 +574,7 @@ def synthetic_frames(np, n, h, w, seed):
     return frames
 
 
-def check_reference(torch, np, cfg, state, seed):
+def check_reference(torch, np, cfg, state, seed, phase="reference"):
     """Full-width model, small input: the GPU path (kernels) in float32
     against the CPU path (plain versions, the path the tests hold against
     the JAX package)."""
@@ -567,7 +596,7 @@ def check_reference(torch, np, cfg, state, seed):
         row[name] = {"shape": list(a.shape), "max_abs_err": err,
                      "ref_absmax": ref_max, "ok": good}
         ok = ok and good
-    emit({"phase": "reference", "input": [2, 64, 64, 3], "dtype": "float32",
+    emit({"phase": phase, "input": [2, 64, 64, 3], "dtype": "float32",
           **row, "ok": ok})
     if not ok:
         fail(f"GPU forward disagrees with the CPU reference: {row}")
@@ -2128,6 +2157,246 @@ def run_reference_model(torch, np, seed, wrappers, dense_train):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the Swin-T segmenter and the trainer's options
+# ---------------------------------------------------------------------------
+
+SWIN_FRAMES = 16
+SWIN_TRAIN_CLIPS = 16  # as phase train's mask2former_vps batch
+# card against CPU, tiny model, one step per option: loss (relative) and
+# gradients (of each tensor's scale), as train_reference bounds them; with
+# bfloat16 mask logits a rounding that flips on one side moves an element by
+# one bfloat16 step (2^-8 relative)
+OPTION_BOUNDS = {"float32": (1e-3, 1e-2), "bfloat16": (1e-2, 5e-2)}
+TRAIN_OPTIONS = {
+    "lapjv": dict(assigner="lapjv"),
+    "greedy": dict(assigner="greedy"),
+    "match_downsample": dict(match_downsample=2),
+    "target_layout": dict(loss_layout="target"),
+    "focal": dict(focal_cls=True, focal_gamma=1.5, focal_alpha=0.3),
+    "sem_seg": dict(with_sem_seg=True, sem_seg_weight=0.7),
+    "bf16_mask_logits": dict(mask_logits_dtype="bfloat16"),
+}
+
+
+def swin_config(**kw):
+    """``mask2former_swin_vps``'s model config with keyword overrides."""
+    from openpvsg_torch.config import mask2former_swin
+
+    return dataclasses.replace(mask2former_swin(True).model, **kw)
+
+
+def check_train_options(torch, np, seed):
+    """One step of the tests' small model per trainer option, on the card
+    and on the CPU from the same state dict and batch: loss, assignment and
+    gradients. Returns the rows."""
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    batch = train_batch(np, 2, 2, (64, 64), (64, 64), 3, 5, seed)
+    batch["gt_semantic"] = np.random.default_rng(seed).integers(0, 6, (2, 2, 16, 16))
+    rows = {}
+    for name, kw in TRAIN_OPTIONS.items():
+        cfg = dataclasses.replace(tiny_train_config(), **kw)
+        state = random_state_dict(cfg, seed)
+        out = {}
+        for dev in ("cpu", None):
+            tr = SegmenterTrainer(cfg, TrainConfig(), steps_per_epoch=10, device=dev,
+                                  state_dict=state)
+            loss, logs = tr.loss_and_grads(batch)
+            out[dev] = (float(loss.detach()), tr.last_assigned,
+                        {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()})
+        loss_rel = abs(out[None][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        grad_rel, grad_at = grad_rel_diff(out[None][2], out["cpu"][2])
+        loss_bound, grad_bound = OPTION_BOUNDS[
+            "bfloat16" if cfg.mask_logits_dtype == "bfloat16" else "float32"]
+        same = bool(np.array_equal(out[None][1], out["cpu"][1]))
+        rows[name] = {"loss_gpu": out[None][0], "loss_cpu": out["cpu"][0],
+                      "loss_rel_diff": loss_rel, "assignments_equal": same,
+                      "max_grad_rel_diff": grad_rel, "max_grad_rel_diff_at": grad_at,
+                      "bounds": [loss_bound, grad_bound],
+                      "sem_seg_loss": "loss_sem_seg" in logs,
+                      "ok": (np.isfinite(out[None][0]) and same and loss_rel <= loss_bound
+                             and grad_rel <= grad_bound)}
+    return rows
+
+
+def lapjv_against_host(torch, np, trainer, batch):
+    """The costs of one full-width step (the trainer's model, its batch),
+    solved by the host Hungarian (copy + C++ LAP) and by LAPJV and greedy on
+    the card: each one's ms (synchronized), and whether LAPJV's assignment
+    equals the host's."""
+    from openpvsg_torch.train.assign import (assignment_costs, device_assign,
+                                             lap_assign, lapjv_assign_from_cost)
+    from openpvsg_torch.train.segmenter import ieee_float32
+
+    cfg = trainer.cfg
+    with torch.no_grad(), ieee_float32():
+        images, labels, masks, valid = trainer.device_batch(batch)
+        cls, mp, _ = trainer.model(images)
+        costs = assignment_costs(cls, mp, labels, masks, valid, cfg.loss_cls_weight,
+                                 cfg.loss_mask_weight, cfg.loss_dice_weight)
+    del mp
+    torch.cuda.synchronize()
+    out = {}
+    for name in ("hungarian", "lapjv", "greedy", "lapjv_again"):
+        t0 = time.perf_counter()
+        if name == "hungarian":
+            a = lap_assign(costs.cpu().numpy())
+        else:
+            a = device_assign(costs, name.split("_")[0]).cpu().numpy()
+        out[name] = ((time.perf_counter() - t0) * 1e3, a)
+    host = out["hungarian"][1]
+    stats = {}
+    lapjv_assign_from_cost(costs.reshape(-1, *costs.shape[2:]), stats=stats)
+    objective = {}
+    c = costs.cpu().numpy()
+    for name, (_, a) in out.items():
+        q = np.nonzero(a >= 0)
+        objective[name] = float(c[(*q, a[q])].astype(np.float64).sum())
+    return {"problems": list(costs.shape[:2]), "queries": costs.shape[2],
+            "targets": costs.shape[3],
+            "host_lap_ms": out["hungarian"][0], "lapjv_ms": out["lapjv"][0],
+            "lapjv_again_ms": out["lapjv_again"][0], "greedy_ms": out["greedy"][0],
+            "lapjv_host_checks": stats["host_checks"],
+            "lapjv_lockstep_iterations": stats["iterations"],
+            "lapjv_equals_host": bool(np.array_equal(out["lapjv"][1], host)),
+            "greedy_equals_host": bool(np.array_equal(out["greedy"][1], host)),
+            "objective": objective}
+
+
+def run_swin(torch, np, seed, gen, dev, wrappers):
+    """The Swin-T segmenter (``mask2former_swin_vps``) at full width:
+    (a) B1 at Swin-T's stride-4 width (Cin 96) against its plain versions;
+    (b) the model on the card against the CPU; (c) VPS stage 2 with launch
+    counts zeroed just before and read just after; (d) training: full-width
+    steps, LAPJV on the card against the host Hungarian on one step's costs
+    and step ms with each, and one step of the small model per trainer
+    option, card against CPU. Returns ((a)'s rows, (c)'s launches)."""
+    from openpvsg_torch.config import mask2former_swin
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.stages import run_query_tube_vps
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    t_phase = time.perf_counter()
+    problems = []
+    # (a) and (b): float32 parity, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": False})
+    fpn_rows = check_fpn(torch, gen, dev, B=2, H=96, W=120, at="swin", Cin=96)
+    cfg = swin_config(object_mask_thr=0.0, iou_thr=0.1)
+    state = random_state_dict(cfg, seed)
+    check_reference(torch, np, cfg, state, seed, phase="swin")
+
+    # (c) stage 2, bf16
+    seg = SegmenterInference(cfg, state, dtype=torch.bfloat16)
+    frames = list(synthetic_frames(np, SWIN_FRAMES, 360, 480, seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_query_tube_vps(seg, frames[:4], os.path.join(tmp, "warm"), window=2)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_tubes = run_query_tube_vps(seg, frames, os.path.join(tmp, "vid"), window=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        run_query_tube_vps(seg, frames, os.path.join(tmp, "again"), window=2)
+        torch.cuda.synchronize()
+        wall_again = time.perf_counter() - t0
+        masks = [open(os.path.join(tmp, run, "quantitive", "masks.txt"), "rb").read()
+                 for run in ("vid", "again")]
+    lines = masks[0].decode().splitlines()
+    row_c = {"config": "mask2former_swin_vps", "params": sum(
+                 t.numel() for t in state.values()),
+             "frames": SWIN_FRAMES, "frame_hw": [360, 480], "window": 2,
+             "dtype": "bfloat16", "seconds": wall, "frames_per_s": SWIN_FRAMES / wall,
+             "frames_per_s_rerun": SWIN_FRAMES / wall_again, "tubes": n_tubes,
+             "masks_txt_lines": len(lines), "peak_gib": peak,
+             "masks_txt_identical_on_rerun": masks[0] == masks[1],
+             "launches": launches}
+    emit({"phase": "swin", "part": "stage2", **row_c})
+    if not lines:
+        problems.append("Swin stage 2 wrote an empty masks.txt")
+    if any(v == 0 for v in launches.values()):
+        problems.append(f"a kernel of the Swin serving path never launched: {launches}")
+    del seg
+
+    # (d) training from torch's default TF32 settings; no kernel may launch
+    torch.backends.cudnn.allow_tf32 = True
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": True})
+    before = launch_counts(wrappers)
+    pvsg = mask2former_swin(True)
+    tr_cfg, tcfg = pvsg.model, pvsg.train
+    clips = SWIN_TRAIN_CLIPS
+    batch = train_batch(np, clips, tr_cfg.num_frames, (360, 480), (384, 480), 20,
+                        tr_cfg.num_classes, seed)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = SegmenterTrainer(tr_cfg, tcfg, steps_per_epoch=1000, seed=seed)
+    losses, step_ms, lap_ms = [], [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(logs["loss"])
+        lap_ms.append(trainer.last_timings["host_lap_s"] * 1e3)
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(step_ms[1:])
+    lap = lapjv_against_host(torch, np, trainer, batch)
+    # step ms with LAPJV on the card: a second trainer from the same seed
+    del trainer
+    lap_trainer = SegmenterTrainer(dataclasses.replace(tr_cfg, assigner="lapjv"), tcfg,
+                                   steps_per_epoch=1000, seed=seed)
+    lap_step_ms, lap_losses, assign_ms = [], [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = lap_trainer.step(batch)
+        torch.cuda.synchronize()
+        lap_step_ms.append((time.perf_counter() - t0) * 1e3)
+        lap_losses.append(logs["loss"])
+        assign_ms.append(lap_trainer.last_timings["device_assign_s"] * 1e3)
+    del lap_trainer
+    lap_med = statistics.median(lap_step_ms[1:])
+    row_d = {"config": "mask2former_swin_vps", "dtype": "float32", "clips": clips,
+             "frames_per_clip": tr_cfg.num_frames,
+             "padded_hw": [384, 480], "steps": 4, "losses": losses, "step_ms": step_ms,
+             "step_ms_median_2_4": med, "host_lap_ms_median_2_4": statistics.median(lap_ms[1:]),
+             "host_lap_share": statistics.median(lap_ms[1:]) / med,
+             "frames_per_s": clips * tr_cfg.num_frames / (med / 1e3), "peak_gib": peak_train,
+             "lapjv_step_ms": lap_step_ms, "lapjv_step_ms_median_2_4": lap_med,
+             "lapjv_device_assign_ms_median_2_4": statistics.median(assign_ms[1:]),
+             "lapjv_losses": lap_losses,
+             "same_costs": lap}
+    emit({"phase": "swin", "part": "train", **row_d})
+    if not (all(np.isfinite(losses)) and all(np.isfinite(lap_losses))):
+        problems.append(f"a Swin training loss is not finite: {losses} {lap_losses}")
+    if not lap["lapjv_equals_host"]:
+        problems.append("LAPJV on the card disagrees with the host Hungarian")
+    options = check_train_options(torch, np, seed)
+    for name, row in options.items():
+        emit({"phase": "swin", "part": "train_option", "option": name, **row})
+        if not row["ok"]:
+            problems.append(f"option {name}: card and CPU disagree: {row}")
+    during = {k: v - before[k] for k, v in launch_counts(wrappers).items()}
+    emit({"phase": "swin", "part": "train_launches", "launches": during})
+    if any(during.values()):
+        problems.append(f"training launched a kernel of the inference path: {during}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "swin", "ok": not problems, "seconds": seconds})
+    if problems:
+        fail("swin: " + "; ".join(problems))
+    return fpn_rows, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2230,7 +2499,12 @@ def main(argv=None) -> int:
     # decoder card against CPU, points training
     ref_launches = run_reference_model(torch, np, args.seed, wrappers, dense_train)
 
-    # 13. the kernels line and the result
+    # 13. the Swin-T segmenter: B1 at its stride-4 width, the model card
+    # against CPU, stage 2 (its launch counts are zeroed just before its run
+    # and read just after), training and the trainer's options
+    swin_fpn, swin_launches = run_swin(torch, np, args.seed, gen, dev, wrappers)
+
+    # 14. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -2259,7 +2533,16 @@ def main(argv=None) -> int:
                      ips_plain_ms=ips["plain_ms"], ips_bound_ms=ips["bound_ms"],
                      ips_library_ms=ips["library_ms"])
         ips2 = ips2_fusion if name == "fusion_maps" else ips2_fpn[(name, "bfloat16")]
-        entry.update(reference_model_launches=ref_launches[fn.__name__])
+        entry.update(reference_model_launches=ref_launches[fn.__name__],
+                     swin_launches=swin_launches[fn.__name__])
+        if name != "fusion_maps":
+            sw = swin_fpn[(name, "bfloat16")]
+            entry.update(swin_shape=[2, 96, 120, 96], swin_max_abs_err=sw["max_abs_err"],
+                         swin_ms=sw["ms"], swin_plain_ms=sw["plain_ms"],
+                         swin_bound_ms=sw["bound_ms"], swin_bound_by=sw["bound_by"],
+                         swin_library_ms=sw["library_ms"],
+                         swin_f32_max_abs_err=swin_fpn[(name, "float32")]["max_abs_err"],
+                         swin_f32_ms=swin_fpn[(name, "float32")]["ms"])
         entry.update(stage2_ips_launches=ips2_launches[fn.__name__],
                      stage2_ips_max_abs_err=ips2["max_abs_err"],
                      stage2_ips_ms=ips2["ms"], stage2_ips_plain_ms=ips2["plain_ms"])

@@ -5,13 +5,13 @@ and the ``config.json`` and ``--set key=value`` plumbing of the CLIs.
 
 The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults),
 so a configuration reads the same in both packages. The fields of modules
-not ported yet (Swin, int8 weights, instance postprocessing) are left out:
-``load_config_file`` reads a ``config.json`` of the JAX package when each of
-them holds its JAX default and raises naming the first that does not.
-``check_training_config`` accepts the dense and the reference's points
-objective, with or without the thing/stuff query split, and refuses the
-training values this port does not run yet, naming the ``ROADMAP.md`` item
-that ports them.
+not ported yet (int8 weights, instance postprocessing, the fused-FPN switch,
+the embedding decay switch) are left out: ``load_config_file`` reads a
+``config.json`` of the JAX package when each of them holds its JAX default
+and raises naming the first that does not. ``check_training_config``
+accepts every training value of ``Mask2FormerConfig`` that the JAX package
+accepts, raises the JAX package's errors for the invalid ones, and refuses
+a compute dtype other than float32, naming ``ROADMAP.md`` A9.
 """
 from __future__ import annotations
 
@@ -26,8 +26,9 @@ from openpvsg_torch import NUM_RELATIONS, NUM_STUFF_CLASSES, NUM_THING_CLASSES
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    kind: str = "resnet"  # only 'resnet' is ported
+    kind: str = "resnet"  # 'resnet' | 'swin'
     depth: int = 50
+    swin_variant: str = "tiny"  # tiny | small | base
     # 'frozen_bn' / 'sync_bn' run BatchNorm with running statistics at
     # inference; 'folded' means the BN affine is folded into the convs.
     norm: str = "frozen_bn"
@@ -81,13 +82,16 @@ class Mask2FormerConfig:
     # 'points': the reference's point-rend sampling (num_points uniform
     # points for the costs, uncertainty-sampled points for the losses)
     loss_sampling: str = "dense"
-    # 'auto' | 'hungarian' (host LAP) | 'lapjv' | 'greedy' (not ported)
+    # 'auto' (= 'hungarian') | 'hungarian' (host LAP) | 'lapjv' (exact, on
+    # the device) | 'greedy' (on the device, approximate)
     assigner: str = "auto"
-    # average-pool factor of the matching operands (1 = exact)
+    # average-pool factor of the matching operands (1 = exact; dense only)
     match_downsample: int = 1
-    # dense mask-loss layout: 'query' | 'target' (not ported)
+    # dense mask-loss layout: 'query' (GT gathered to every query) |
+    # 'target' (the matched predictions gathered to the targets; same sums)
     loss_layout: str = "query"
     # storage dtype of the per-layer mask logits: 'float32' | 'bfloat16'
+    # (float32 accumulation; the trainer's GT masks follow it)
     mask_logits_dtype: str = "float32"
     num_points: int = 12544
     oversample_ratio: float = 3.0
@@ -96,8 +100,9 @@ class Mask2FormerConfig:
     object_mask_thr: float = 0.8
     iou_thr: float = 0.8
     # head variants: split thing/stuff queries (the last num_stuff_classes
-    # queries take only stuff targets), focal classification loss (not
-    # ported), per-pixel semantic aux head (not ported)
+    # queries take only stuff targets), sigmoid focal classification loss,
+    # per-pixel semantic aux head (a 1x1 conv on the mask features, trained
+    # when a batch carries ``gt_semantic``)
     split_thing_stuff: bool = False
     focal_cls: bool = False
     focal_gamma: float = 2.0
@@ -265,9 +270,23 @@ def relation_conv_large() -> PVSGConfig:
             temporal_layers=2, temporal_heads=8, temporal_ffn=1024))
 
 
+def mask2former_swin(video: bool = True) -> PVSGConfig:
+    """The Swin-T backbone variant of the segmenter, VPS (2-frame clips)
+    or IPS."""
+    return PVSGConfig(
+        name="mask2former_swin_vps" if video else "mask2former_swin_ips",
+        model=Mask2FormerConfig(
+            video=video,
+            num_frames=2 if video else 1,
+            backbone=BackboneConfig(kind="swin", swin_variant="tiny"),
+            pixel_decoder=PixelDecoderConfig(in_channels=(96, 192, 384, 768))))
+
+
 PRESETS = {
     "mask2former_ips": mask2former_ips,
     "mask2former_vps": mask2former_vps,
+    "mask2former_swin_ips": lambda: mask2former_swin(False),
+    "mask2former_swin_vps": lambda: mask2former_swin(True),
     "relation_vanilla": lambda: relation_head("vanilla"),
     "relation_filter": lambda: relation_head("filter"),
     "relation_conv": lambda: relation_head("conv"),
@@ -280,7 +299,6 @@ PRESETS = {
 # default each must hold in a config.json the port reads, and the ROADMAP.md
 # item that ports its module.
 JAX_ONLY_FIELDS: Dict[str, Tuple[Any, str]] = {
-    "model.backbone.swin_variant": ("tiny", "A12"),
     "model.pixel_decoder.strides": ([4, 8, 16, 32], "A12"),
     "model.pixel_decoder.fused_fpn": (False, "A4"),
     "model.int8_weights": (False, "A12"),
@@ -300,8 +318,7 @@ def get_config(name: str) -> PVSGConfig:
                 f"always treated as a path, never a preset name)")
         return load_config_file(name)
     if name not in PRESETS:
-        raise KeyError(f"unknown config preset '{name}'; have {sorted(PRESETS)} "
-                       "(the Swin presets are not ported: ROADMAP.md A12)")
+        raise KeyError(f"unknown config preset '{name}'; have {sorted(PRESETS)}")
     return PRESETS[name]()
 
 
@@ -391,53 +408,77 @@ def parse_set_args(pairs: Sequence[str]) -> Dict[str, Any]:
     return out
 
 
+ASSIGNERS = ("hungarian", "lapjv", "greedy")
+
+
 def resolve_assigner(cfg: Mask2FormerConfig) -> str:
     """'auto' is the host Hungarian on every device of the port: the LAP
     runs on the host after one copy of the cost tensor, on CPU and CUDA
-    alike."""
+    alike. (The JAX package resolves 'auto' to LAPJV off the CPU because
+    host callbacks fail inside a TPU step; a CUDA step has no such
+    limit.)"""
     return "hungarian" if cfg.assigner == "auto" else cfg.assigner
 
 
-def check_training_config(cfg: Mask2FormerConfig) -> None:
-    """Raise ValueError for a training value this port does not run yet,
-    whether or not the JAX package accepts it; the message names the
-    ROADMAP.md item. ``loss_sampling`` 'dense' or 'points' (with its
-    ``num_points``, ``oversample_ratio`` and ``importance_sample_ratio``)
-    and ``split_thing_stuff`` train. The combinations the JAX package
-    rejects (``openpvsg_tpu/train/segmenter.py:154-168``) raise its
-    errors first. The knobs of the unported modes (focal, the semantic
-    head) are refused too, so that setting one never does nothing.
-    ``check_assigner_capacity`` (``openpvsg_tpu/train/segmenter.py:137``)
-    guards LAPJV's N <= Q and comes with LAPJV."""
-    if cfg.loss_sampling not in ("dense", "points"):
-        raise ValueError(f"model.loss_sampling={cfg.loss_sampling!r}: "
-                         "'dense' or 'points'")
-    points = cfg.loss_sampling == "points"
-    if points and cfg.match_downsample > 1:
+def check_assigner_capacity(cfg: Mask2FormerConfig, max_instances: int) -> None:
+    """The JAX package's config-time checks of the assigner and the
+    matching and loss layouts, with its messages
+    (``openpvsg_tpu/train/segmenter.py:137-175``): LAPJV needs
+    ``max_instances <= num_queries``; ``match_downsample`` >= 1 and, above
+    1, dense sampling; ``loss_layout`` 'query' or 'target', and 'target'
+    only dense; ``mask_logits_dtype`` 'float32' or 'bfloat16'. The port
+    also refuses an assigner it does not know, which the JAX package would
+    run as the host Hungarian."""
+    if cfg.assigner not in ("auto",) + ASSIGNERS:
+        raise ValueError(f"model.assigner must be one of "
+                         f"{('auto',) + ASSIGNERS}, got {cfg.assigner!r}")
+    if (resolve_assigner(cfg) == "lapjv"
+            and max_instances > cfg.num_queries):
+        raise ValueError(
+            f"assigner='lapjv' (resolved from '{cfg.assigner}') requires "
+            f"max_instances <= model.num_queries, got max_instances="
+            f"{max_instances} > num_queries={cfg.num_queries}. Lower "
+            f"--max-instances, raise model.num_queries, or use "
+            f"model.assigner='hungarian' or 'greedy'.")
+    if cfg.match_downsample < 1:
+        raise ValueError(
+            f"model.match_downsample must be >= 1, got {cfg.match_downsample}")
+    if cfg.match_downsample != 1 and cfg.loss_sampling == "points":
         raise ValueError(
             "model.match_downsample > 1 requires loss_sampling='dense' "
             "(point-rend matching already subsamples; pooling on top of it "
             "would double-approximate). Set model.loss_sampling='dense' or "
             "model.match_downsample=1.")
-    if points and cfg.loss_layout == "target":
+    if cfg.loss_layout not in ("query", "target"):
+        raise ValueError(
+            f"model.loss_layout must be 'query' or 'target', got "
+            f"{cfg.loss_layout!r}")
+    if cfg.loss_layout == "target" and cfg.loss_sampling == "points":
         raise ValueError(
             "model.loss_layout='target' requires loss_sampling='dense' "
             "(point sampling needs the per-query layout). Set "
             "model.loss_sampling='dense' or model.loss_layout='query'.")
-    unported = {
-        "assigner": (resolve_assigner(cfg), "hungarian"),
-        "match_downsample": (cfg.match_downsample, 1),
-        "loss_layout": (cfg.loss_layout, "query"),
-        "mask_logits_dtype": (cfg.mask_logits_dtype, "float32"),
-        "focal_cls": (cfg.focal_cls, False),
-        "focal_gamma": (cfg.focal_gamma, 2.0),
-        "focal_alpha": (cfg.focal_alpha, 0.25),
-        "with_sem_seg": (cfg.with_sem_seg, False),
-        "sem_seg_weight": (cfg.sem_seg_weight, 1.0),
-        "backbone.dtype": (cfg.backbone.dtype, "float32"),
-    }
-    for name, (value, ported) in unported.items():
-        if value != ported:
-            raise ValueError(
-                f"model.{name}={value!r} is not ported to openpvsg_torch "
-                f"training (only {ported!r}); ROADMAP.md A9c ports it")
+    if cfg.mask_logits_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"model.mask_logits_dtype must be 'float32' or 'bfloat16', "
+            f"got {cfg.mask_logits_dtype!r}")
+
+
+def check_training_config(cfg: Mask2FormerConfig) -> None:
+    """Raise ValueError for a training value the port does not take.
+    ``loss_sampling`` is 'dense' or 'points'; the assigner, layout and
+    dtype checks are ``check_assigner_capacity``'s (LAPJV's capacity is
+    checked against each batch, as the JAX trainer does); the backbone is
+    'resnet' or 'swin'. A compute dtype other than float32
+    (``backbone.dtype``) is not ported: ROADMAP.md A9."""
+    if cfg.loss_sampling not in ("dense", "points"):
+        raise ValueError(f"model.loss_sampling={cfg.loss_sampling!r}: "
+                         "'dense' or 'points'")
+    if cfg.backbone.kind not in ("resnet", "swin"):
+        raise ValueError(f"model.backbone.kind={cfg.backbone.kind!r}: "
+                         "'resnet' or 'swin'")
+    check_assigner_capacity(cfg, 0)
+    if cfg.backbone.dtype != "float32":
+        raise ValueError(
+            f"model.backbone.dtype={cfg.backbone.dtype!r} is not ported to "
+            "openpvsg_torch training (only 'float32'); ROADMAP.md A9 ports it")

@@ -74,8 +74,8 @@ class SegmenterInference:
     """Owns the model on one device and runs forward + stitch + fusion.
 
     ``state_dict`` is the port's float32 state dict (``weights.py``). With
-    ``fold_bn`` (default) and a BatchNorm backbone the BN affines are folded
-    into the convs first. ``dtype`` is the compute dtype (float32 or
+    ``fold_bn`` (default) and a BatchNorm ResNet the BN affines are folded
+    into the convs first (a Swin backbone has no BN: nothing to fold). ``dtype`` is the compute dtype (float32 or
     bfloat16). ``device=None`` means the GPU and raises when there is none;
     pass ``device="cpu"`` to run on the CPU.
     """
@@ -87,7 +87,8 @@ class SegmenterInference:
                  dtype: torch.dtype = torch.float32, device=None,
                  pad_divisor: int = 32, fold_bn: bool = True):
         self.device = resolve_device(device)
-        if (fold_bn and cfg.backbone.norm in ("frozen_bn", "sync_bn")
+        if (fold_bn and cfg.backbone.kind == "resnet"
+                and cfg.backbone.norm in ("frozen_bn", "sync_bn")
                 and any(k.endswith(".running_var") for k in state_dict)):
             state_dict = fold_frozen_bn(state_dict)
             cfg = dataclasses.replace(
@@ -110,8 +111,11 @@ class SegmenterInference:
     def forward_frames(self, frames: np.ndarray):
         """frames: (N, H, W, 3) uint8 RGB, normalized and zero-padded to the
         divisor here, on the device. Each frame runs with T=1. Returns
-        device tensors (cls (N, Q, K+1), masks (N, Q, Hp/4, Wp/4) float32,
-        query (N, Q, C))."""
+        device tensors (cls (N, Q, K+1), masks (N, Q, Hp/4, Wp/4) in the
+        model's ``mask_logits_dtype``, query (N, Q, C)). Fusion reads the
+        masks as float32: bfloat16 logits are widened exactly, and kernel
+        B2 upsamples them in float32 (the JAX package upsamples and takes
+        the sigmoid in bfloat16)."""
         frames = np.asarray(frames)
         if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3:
             raise ValueError("forward_frames takes (N, H, W, 3) uint8 frames, "

@@ -1,7 +1,9 @@
 """Mask2Former segmenter, the port of
 ``openpvsg_tpu/models/mask2former.py:34-226``.
 
-Backbone -> pixel decoder -> masked-attention head. Features carry a time
+Backbone (ResNet or Swin, ``backbone.kind``) -> pixel decoder ->
+masked-attention head, with the optional per-pixel semantic head
+(``with_sem_seg``: a 1x1 conv to K+1 classes on the mask features). Features carry a time
 axis T; the decoder attends over the flattened (T*h*w) tokens of each level
 with the 2-D sine encoding for T=1 and the 3-D one for clips.
 
@@ -15,11 +17,13 @@ with the 2-D sine encoding for T=1 and the 3-D one for clips.
   every layer (deep supervision).
 
 A query whose mask blocks every token attends everywhere
-(``openpvsg_tpu/models/mask2former.py:129-135``).
+(``openpvsg_tpu/models/mask2former.py:129-135``). The mask logits
+accumulate in float32 and are stored in ``mask_logits_dtype`` (bfloat16
+halves the training step's largest tensor), in both forwards.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 import torch.nn as nn
@@ -30,6 +34,7 @@ from openpvsg_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from openpvsg_torch.models.position_encoding import (sine_pos_encoding,
                                                      sine_pos_encoding_3d)
 from openpvsg_torch.models.resnet import ResNet
+from openpvsg_torch.models.swin import SwinTransformer
 from openpvsg_torch.models.transformer_decoder import MaskedDecoderLayer
 from openpvsg_torch.ops.resize import resize_bilinear
 
@@ -56,6 +61,8 @@ class Mask2FormerHead(nn.Module):
         self.query_feat = nn.Parameter(torch.zeros(cfg.num_queries, C))
         self.query_embed = nn.Parameter(torch.zeros(cfg.num_queries, C))
         self.level_embed = nn.Parameter(torch.zeros(self.num_levels, C))
+        self.logits_dtype = (torch.bfloat16 if cfg.mask_logits_dtype == "bfloat16"
+                             else torch.float32)
         self.decoder_norm = nn.LayerNorm(C, eps=LN_EPS)
         self.cls_embed = nn.Linear(C, cfg.num_classes + 1)
         self.mask_embed = MaskEmbedMLP(C)
@@ -73,8 +80,9 @@ class Mask2FormerHead(nn.Module):
         w_l, C) for strides [32, 16, 8].
 
         Returns (cls (L+1, B, Q, K+1), mask logits (L+1, B, Q, T, H4, W4)
-        float32 — (1, ...) of the final layer unless ``all_layer_masks`` —,
-        query_feats (B, Q, C) final decoder-normed queries)."""
+        in ``mask_logits_dtype`` — (1, ...) of the final layer unless
+        ``all_layer_masks`` —, query_feats (B, Q, C) final decoder-normed
+        queries)."""
         B, T, H4, W4, C = mask_features.shape
         dtype = mask_features.dtype
         feats_flat: List[torch.Tensor] = []
@@ -106,7 +114,7 @@ class Mask2FormerHead(nn.Module):
 
         def full_masks(membed):
             return torch.einsum("bqc,bthwc->bqthw", membed.float(),
-                                mask_features.float())
+                                mask_features.float()).to(self.logits_dtype)
 
         cls, membed, normed = self._head(query)
         cls_preds, mask_preds = [cls], []
@@ -128,30 +136,41 @@ class Mask2FormerHead(nn.Module):
 
 class Mask2Former(nn.Module):
     """Backbone + pixel decoder + transformer head (``backbone``,
-    ``pixel_decoder``, ``head``, as in the flax tree). ``train`` selects the
-    training forward, as the flax module's attribute does."""
+    ``pixel_decoder``, ``head``, and ``sem_seg_head`` with
+    ``with_sem_seg``, as in the flax tree). ``train`` selects the training
+    forward, as the flax module's attribute does."""
 
     def __init__(self, cfg: Mask2FormerConfig, train: bool = False):
         super().__init__()
-        if cfg.backbone.kind != "resnet":
-            raise ValueError(f"backbone '{cfg.backbone.kind}' is not ported")
         self.cfg = cfg
         self.train_mode = train
-        self.backbone = ResNet(cfg.backbone.depth, cfg.backbone.norm,
-                               cfg.backbone.out_indices, train=train)
+        if cfg.backbone.kind == "swin":
+            self.backbone = SwinTransformer(cfg.backbone.swin_variant,
+                                            out_indices=cfg.backbone.out_indices)
+        elif cfg.backbone.kind == "resnet":
+            self.backbone = ResNet(cfg.backbone.depth, cfg.backbone.norm,
+                                   cfg.backbone.out_indices, train=train)
+        else:
+            raise ValueError(f"backbone kind '{cfg.backbone.kind}': 'resnet' "
+                             "or 'swin'")
         self.pixel_decoder = MSDeformAttnPixelDecoder(cfg.pixel_decoder,
                                                       train=train)
         self.head = Mask2FormerHead(cfg)
+        if cfg.with_sem_seg:
+            self.sem_seg_head = nn.Conv2d(cfg.pixel_decoder.out_channels,
+                                          cfg.num_classes + 1, 1)
 
-    def forward(self, images: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, images: torch.Tensor, return_sem_seg: bool = False):
         """Inference: images (N, H, W, 3) normalized frames, each run with
-        T=1 -> (cls (N, Q, K+1), masks (N, Q, H/4, W/4) float32,
-        query (N, Q, C)).
+        T=1 -> (cls (N, Q, K+1), masks (N, Q, H/4, W/4) in
+        ``mask_logits_dtype``, query (N, Q, C)).
 
         Training: images (B, T, H, W, 3) clips -> (cls_preds (L+1, B, Q,
-        K+1), mask_preds (L+1, B, Q, T, H/4, W/4) float32, query_feats
-        (B, Q, C)); the backbone runs on the B*T frames."""
+        K+1), mask_preds (L+1, B, Q, T, H/4, W/4) in ``mask_logits_dtype``,
+        query_feats (B, Q, C)); the backbone runs on the B*T frames.
+
+        ``return_sem_seg`` appends the semantic head's logits (B, T, H/4,
+        W/4, K+1) (inference: (N, H/4, W/4, K+1)), None without the head."""
         if not self.train_mode:
             images = images[:, None]
         B, T, H, W, _ = images.shape
@@ -164,6 +183,13 @@ class Mask2Former(nn.Module):
         cls, masks, query = self.head(
             unflatten(mask_features), [unflatten(f) for f in ms_feats],
             all_layer_masks=self.train_mode)
-        if self.train_mode:
-            return cls, masks, query
-        return cls[-1], masks[0, :, :, 0], query
+        out = ((cls, masks, query) if self.train_mode
+               else (cls[-1], masks[0, :, :, 0], query))
+        if not return_sem_seg:
+            return out
+        sem = None
+        if self.cfg.with_sem_seg:
+            w = self.sem_seg_head.weight[:, :, 0, 0]
+            sem = F.linear(mask_features, w, self.sem_seg_head.bias)
+            sem = unflatten(sem) if self.train_mode else sem
+        return (*out, sem)

@@ -224,7 +224,8 @@ def main(argv=None):
             wait_s += t1 - t0
             step_s += t2 - t1
             step_each.append(t2 - t1)
-            lap_each.append(trainer.last_timings["host_lap_s"])
+            # 0 with 'lapjv' or 'greedy': they run no host LAP
+            lap_each.append(trainer.last_timings.get("host_lap_s", 0.0))
             n_steps += 1
             step += 1
             losses.append(logs["loss"])

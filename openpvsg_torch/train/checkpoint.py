@@ -19,8 +19,10 @@ The reference's own checkpoints, mmdet 2.x ``.pth`` files of Mask2Former
 (R-50, the MSDA pixel decoder), load through ``load_mmdet_checkpoint`` and
 ``convert_mmdet_mask2former``, the port of
 ``openpvsg_tpu/train/checkpoint.py:87-254``, into the port's state dict for
-a config with ``pixel_decoder.encoder='msda'``. Loading the JAX package's
-msgpack checkpoints is not ported (ROADMAP.md A9).
+a config with ``pixel_decoder.encoder='msda'``. An mmdet Swin backbone
+state dict converts with ``convert_mmdet_swin`` into the port's
+``SwinTransformer`` names. Loading the JAX package's msgpack checkpoints is
+not ported (ROADMAP.md A9).
 """
 from __future__ import annotations
 
@@ -209,4 +211,77 @@ def convert_mmdet_mask2former(sd: Mapping, cfg) -> Dict[str, torch.Tensor]:
         problems.append(f"shape mismatches {bad[:8]}")
     if problems:
         raise ValueError("convert_mmdet_mask2former: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mmdet Swin backbones
+# ---------------------------------------------------------------------------
+
+def _array(value) -> np.ndarray:
+    return np.array(value.detach().cpu().numpy() if hasattr(value, "detach")
+                    else value, dtype=np.float32)
+
+
+def _unfold_to_dy_dx_c(arr: np.ndarray) -> np.ndarray:
+    """A patch-merging tensor whose last axis (4C) is in mmdet's ``nn.Unfold``
+    order (c, dy, dx) -> the same tensor in the port's (dy, dx, c) order."""
+    *lead, four_c = arr.shape
+    c = four_c // 4
+    return (arr.reshape(*lead, c, 2, 2)
+            .transpose(*range(len(lead)), len(lead) + 1, len(lead) + 2, len(lead))
+            .reshape(*lead, four_c))
+
+
+def convert_mmdet_swin(sd: Mapping, src: str = "backbone") -> Dict[str, torch.Tensor]:
+    """An mmdet 2.x ``SwinTransformer`` state dict (keys under ``src``:
+    ``patch_embed.projection``/``.norm``, ``stages.S.blocks.B.{norm1,
+    attn.w_msa.{qkv,proj,relative_position_bias_table}, norm2,
+    ffn.layers.0.0, ffn.layers.1}``, ``stages.S.downsample.{norm,
+    reduction}``, ``norm0..3``; tensors or arrays) -> float32 weights of
+    ``openpvsg_torch.models.swin.SwinTransformer`` in its names (the port of
+    ``openpvsg_tpu/train/checkpoint.py:255-289``, which walks the same keys).
+
+    mmdet's ``PatchMerging`` gathers each 2x2 patch with ``nn.Unfold``, so
+    its ``norm`` (4C) and the input axis of its ``reduction`` are in
+    (c, dy, dx) order, while the port (and the JAX package) concatenates in
+    (dy, dx, c); both are reordered here. The JAX converter copies them as
+    they are. Keys it does not walk (``relative_position_index``) are left
+    out, as there."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, value, merge_order=False):
+        arr = _array(value)
+        out[key] = torch.from_numpy(np.ascontiguousarray(
+            _unfold_to_dy_dx_c(arr) if merge_order else arr))
+
+    put("patch_embed.weight", sd[f"{src}.patch_embed.projection.weight"])
+    put("patch_embed.bias", sd[f"{src}.patch_embed.projection.bias"])
+    for leaf in ("weight", "bias"):
+        put(f"patch_norm.{leaf}", sd[f"{src}.patch_embed.norm.{leaf}"])
+    s = 0
+    while f"{src}.stages.{s}.blocks.0.norm1.weight" in sd:
+        b = 0
+        while f"{src}.stages.{s}.blocks.{b}.norm1.weight" in sd:
+            p, d = f"{src}.stages.{s}.blocks.{b}", f"stage{s}_block{b}"
+            for leaf in ("weight", "bias"):
+                put(f"{d}.norm1.{leaf}", sd[f"{p}.norm1.{leaf}"])
+                put(f"{d}.norm2.{leaf}", sd[f"{p}.norm2.{leaf}"])
+                put(f"{d}.attn.qkv.{leaf}", sd[f"{p}.attn.w_msa.qkv.{leaf}"])
+                put(f"{d}.attn.proj.{leaf}", sd[f"{p}.attn.w_msa.proj.{leaf}"])
+                put(f"{d}.mlp_fc1.{leaf}", sd[f"{p}.ffn.layers.0.0.{leaf}"])
+                put(f"{d}.mlp_fc2.{leaf}", sd[f"{p}.ffn.layers.1.{leaf}"])
+            put(f"{d}.attn.rel_bias_table",
+                sd[f"{p}.attn.w_msa.relative_position_bias_table"])
+            b += 1
+        down = f"{src}.stages.{s}.downsample"
+        if f"{down}.norm.weight" in sd:
+            for leaf in ("weight", "bias"):
+                put(f"downsample{s}.norm.{leaf}", sd[f"{down}.norm.{leaf}"], True)
+            put(f"downsample{s}.reduction.weight", sd[f"{down}.reduction.weight"], True)
+        s += 1
+    for i in range(4):
+        if f"{src}.norm{i}.weight" in sd:
+            for leaf in ("weight", "bias"):
+                put(f"out_norm{i}.{leaf}", sd[f"{src}.norm{i}.{leaf}"])
     return out

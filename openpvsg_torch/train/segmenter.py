@@ -12,8 +12,14 @@ The recipe (reference: configs/mask2former/..._custom.py:163-191):
 
 The objective is the configured one: dense or point-sampled
 (``loss_sampling``), with or without the thing/stuff query split
-(``split_thing_stuff``); ``SegmenterTrainer.loss`` computes it from the
-model's predictions.
+(``split_thing_stuff``), matched by the host Hungarian, LAPJV or greedy on
+the device (``assigner``, on operands pooled by ``match_downsample``), with
+the mask losses in the query or the target layout (``loss_layout``), the
+softmax or the focal classification loss (``focal_cls``), bfloat16 or
+float32 mask logits and GT masks (``mask_logits_dtype``), and the semantic
+head's loss when a batch carries ``gt_semantic`` (``with_sem_seg``; as in
+the JAX trainer, no data path of either package fills it).
+``SegmenterTrainer.loss`` computes it from the model's predictions.
 
 Groups and the decay mask are the JAX package's rules applied to the flax
 path of each parameter (``weights.flax_path``). torch's AdamW with those
@@ -32,11 +38,13 @@ import numpy as np
 import torch
 
 from openpvsg_torch.config import (Mask2FormerConfig, TrainConfig,
-                                   check_training_config)
+                                   check_assigner_capacity,
+                                   check_training_config, resolve_assigner)
 from openpvsg_torch.infer.segmenter import resolve_device
 from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.ops.sampling import uniform_draw
-from openpvsg_torch.train.assign import assignment_costs, lap_assign
+from openpvsg_torch.train.assign import (assignment_costs, lap_assign,
+                                         solve_assignment)
 from openpvsg_torch.train.losses import mask2former_loss
 from openpvsg_torch.weights import flax_path, random_state_dict
 
@@ -160,6 +168,8 @@ class SegmenterTrainer:
       gt_labels (B, N) int, padded
       gt_masks  (B, N, T, H/4, W/4) binary at mask-feature resolution
       gt_valid  (B, N) bool
+      gt_semantic (B, T, H/4, W/4) class ids, optional: the semantic
+                head's target (its loss is added only when it is given)
 
     ``device=None`` means the GPU and raises without one; pass
     ``device="cpu"`` to train on the CPU. The forward and backward run in
@@ -170,9 +180,12 @@ class SegmenterTrainer:
     default ``generator``, a ``torch.Generator`` on the trainer's device
     seeded with ``seed``; checkpoints save and restore its state. After each step
     ``last_assigned`` holds the (L, B, Q) assignment and ``last_timings``
-    the host seconds blocked in the cost copy (``cost_wait_s``: it waits for
-    the device to finish the forward and the costs) and spent in the host
-    LAP (``host_lap_s``, while the device has nothing queued).
+    the host seconds: with the host Hungarian, blocked in the cost copy
+    (``cost_wait_s``: it waits for the device to finish the forward and the
+    costs) and spent in the host LAP (``host_lap_s``, while the device has
+    nothing queued); with 'lapjv' or 'greedy', from the costs' enqueue to
+    the assignment on the host (``device_assign_s``, the forward's tail
+    included).
     """
 
     def __init__(self, cfg: Mask2FormerConfig, train_cfg: TrainConfig,
@@ -182,6 +195,7 @@ class SegmenterTrainer:
                  norm_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)):
         check_training_config(cfg)
         self.cfg = cfg
+        self.assigner = resolve_assigner(cfg)
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         model = Mask2Former(cfg, train=True)
@@ -203,7 +217,8 @@ class SegmenterTrainer:
 
     def device_batch(self, batch: Dict):
         """The batch's (images normalized float32, gt_labels int64,
-        gt_masks float32, gt_valid bool) on the trainer's device."""
+        gt_masks float32 (bfloat16 with ``mask_logits_dtype``: exact for
+        0/1), gt_valid bool) on the trainer's device."""
         def dev(x, dtype=None):  # copy as given, convert on the device
             t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
             return t.to(self.device).to(dtype)
@@ -211,8 +226,10 @@ class SegmenterTrainer:
         images = dev(batch["images"])
         if images.dtype == torch.uint8:
             images = (images.float() - self._mean) / self._std
+        gt_dtype = (torch.bfloat16 if self.cfg.mask_logits_dtype == "bfloat16"
+                    else torch.float32)
         return (images.float(), dev(batch["gt_labels"], torch.int64),
-                dev(batch["gt_masks"], torch.float32),
+                dev(batch["gt_masks"], gt_dtype),
                 dev(batch["gt_valid"], torch.bool))
 
     def loss_and_grads(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
@@ -226,8 +243,12 @@ class SegmenterTrainer:
 
     def _loss_and_grads(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         images, gt_labels, gt_masks, gt_valid = self.device_batch(batch)
-        cls_preds, mask_preds, _ = self.model(images)
-        loss, logs = self.loss(cls_preds, mask_preds, gt_labels, gt_masks, gt_valid)
+        cls_preds, mask_preds, _, sem_seg = self.model(images, return_sem_seg=True)
+        gt_semantic = batch.get("gt_semantic")
+        if gt_semantic is not None:
+            gt_semantic = torch.as_tensor(np.asarray(gt_semantic)).to(self.device)
+        loss, logs = self.loss(cls_preds, mask_preds, gt_labels, gt_masks,
+                               gt_valid, sem_seg, gt_semantic)
         logs["loss"] = loss
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
@@ -236,12 +257,12 @@ class SegmenterTrainer:
                 p.grad = torch.zeros_like(p)
         return loss, logs
 
-    def loss(self, cls_preds, mask_preds, gt_labels, gt_masks, gt_valid
-             ) -> Tuple[torch.Tensor, Dict]:
+    def loss(self, cls_preds, mask_preds, gt_labels, gt_masks, gt_valid,
+             sem_seg=None, gt_semantic=None) -> Tuple[torch.Tensor, Dict]:
         """The configured objective of the model's predictions: the costs
-        on the device, their copy and the host LAP (timed into
-        ``last_timings``, the assignment kept in ``last_assigned``), then
-        ``mask2former_loss``; points draws from ``self.draw``."""
+        on the device, then the assignment (timed into ``last_timings``,
+        kept in ``last_assigned``), then ``mask2former_loss``; points draws
+        from ``self.draw``."""
         cfg = self.cfg
         kw = dict(cls_weight=cfg.loss_cls_weight, mask_weight=cfg.loss_mask_weight,
                   dice_weight=cfg.loss_dice_weight,
@@ -250,19 +271,29 @@ class SegmenterTrainer:
                   num_stuff_queries=cfg.num_stuff_classes if cfg.split_thing_stuff else 0,
                   num_things_classes=cfg.num_things_classes)
         costs = assignment_costs(cls_preds.detach(), mask_preds.detach(),
-                                 gt_labels, gt_masks, gt_valid, **kw)
+                                 gt_labels, gt_masks, gt_valid,
+                                 match_downsample=cfg.match_downsample, **kw)
         t0 = time.perf_counter()
-        host_costs = costs.cpu().numpy()
-        t1 = time.perf_counter()
-        self.last_assigned = lap_assign(host_costs, kw["num_stuff_queries"])
-        self.last_timings = {"cost_wait_s": t1 - t0,
-                             "host_lap_s": time.perf_counter() - t1}
+        if self.assigner == "hungarian":
+            host_costs = costs.cpu().numpy()
+            t1 = time.perf_counter()
+            self.last_assigned = lap_assign(host_costs, kw["num_stuff_queries"])
+            self.last_timings = {"cost_wait_s": t1 - t0,
+                                 "host_lap_s": time.perf_counter() - t1}
+        else:
+            self.last_assigned = solve_assignment(costs, self.assigner,
+                                                  kw["num_stuff_queries"])
+            self.last_timings = {"device_assign_s": time.perf_counter() - t0}
         return mask2former_loss(
             cls_preds, mask_preds, gt_labels, gt_masks, gt_valid,
             cfg.num_classes, bg_cls_weight=cfg.bg_cls_weight,
             assigned=self.last_assigned,
             oversample_ratio=cfg.oversample_ratio,
-            importance_sample_ratio=cfg.importance_sample_ratio, **kw)
+            importance_sample_ratio=cfg.importance_sample_ratio,
+            loss_layout=cfg.loss_layout, focal=cfg.focal_cls,
+            focal_gamma=cfg.focal_gamma, focal_alpha=cfg.focal_alpha,
+            sem_seg_logits=sem_seg, gt_semantic=gt_semantic,
+            sem_seg_weight=cfg.sem_seg_weight, **kw)
 
     def apply_updates(self) -> None:
         """Clip the gradients by their global norm, then one AdamW step of
@@ -277,7 +308,11 @@ class SegmenterTrainer:
 
     def step(self, batch: Dict) -> Dict[str, float]:
         """One train step; returns the logs (``loss`` and the per-layer
-        ``loss_cls``/``loss_mask``/``loss_dice``) as floats."""
+        ``loss_cls``/``loss_mask``/``loss_dice``) as floats. With LAPJV the
+        batch's padded target count must not exceed ``num_queries``
+        (``check_assigner_capacity``)."""
+        if self.assigner == "lapjv":
+            check_assigner_capacity(self.cfg, np.shape(batch["gt_labels"])[1])
         _, logs = self.loss_and_grads(batch)
         self.apply_updates()
         values = torch.stack([v.detach().float() for v in logs.values()]).cpu()

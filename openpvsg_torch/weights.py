@@ -10,8 +10,10 @@ flax scope paths joined by '.', and leaves map as
   LayerNorm/GroupNorm/BN ``scale``   -> ``weight``
   BN batch stats ``mean`` / ``var``  -> ``running_mean`` / ``running_var``
 
-Other leaves (``bias``, ``query_feat``, ``level_embed``, ...) keep their
-name. A key the port's model does not have, or a model key the tree does not
+Other leaves (``bias``, ``query_feat``, ``level_embed``, Swin's
+``rel_bias_table`` (a bare (table, heads) parameter), ...) keep their name;
+a bias-free Dense (Swin's ``downsample{s}.reduction``) has no ``bias`` on
+either side. A key the port's model does not have, or a model key the tree does not
 provide, raises, as ``check_no_extra_params`` does for flax.
 ``to_jax_params`` is the inverse walk; ``flax_path`` names one key's flax
 leaf (the trainer's parameter groups are defined on those paths).
@@ -163,7 +165,8 @@ def random_state_dict(cfg: Mask2FormerConfig, seed: int
                       ) -> Dict[str, torch.Tensor]:
     """Random float32 weights for ``Mask2Former(cfg)`` from an explicit
     ``torch.Generator``: weights ~ N(0, 1/fan_in), biases 0, norm scales 1,
-    embeddings ~ N(0, 1), BN running mean 0 and variance 1 plus noise. The
+    embeddings ~ N(0, 1), Swin's relative position bias tables ~ N(0,
+    0.02²) (flax's init), BN running mean 0 and variance 1 plus noise. The
     MSDA layers start as flax starts them: ``sampling_offsets`` with a zero
     weight and the directional grid as bias, ``attention_weights`` zero,
     so that random weights sample around each reference point."""
@@ -188,6 +191,8 @@ def random_state_dict(cfg: Mask2FormerConfig, seed: int
             t = 1.0 + 0.1 * torch.rand(shape, generator=gen)
         elif leaf in ("bias", "running_mean"):
             t = torch.zeros(shape)
+        elif leaf == "rel_bias_table":
+            t = 0.02 * torch.randn(shape, generator=gen)
         else:  # query_feat, query_embed, level_embed
             t = torch.randn(shape, generator=gen)
         out[key] = t

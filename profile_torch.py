@@ -48,6 +48,15 @@ and fusion) after a warm-up window, and one training step with
 each: wall time, device busy time and idle share, time by kernel family and
 the top kernels.
 
+With ``--swin`` it instead profiles the Swin-T segmenter as
+``chip_smoke.py``'s ``swin`` phase runs it (``mask2former_swin_vps`` at full
+width, random weights from the seed): one stage-2 window (2 360x480
+frames, bf16, forward, stitch and fusion) after a warm-up window, then one
+training step (float32, 16 clips of 2 384x480 frames) after two warm-up
+steps, once with the host Hungarian and once with LAPJV on the card. For
+each: wall time, device busy time and idle share, time by kernel family and
+the top kernels; for the steps also the assignment's host milliseconds.
+
 With ``--relation`` it instead profiles the relation head
 (``relation_head('transformer')`` at full width, float32, TF32 off, random
 weights from the seed): one train step of a video at the largest training
@@ -77,6 +86,7 @@ FAMILIES = (
     ("fpn_", "B1 fpn (port kernel)"),
     ("grid_sampler", "grid_sample (MSDA, points)"),
     ("sort", "sort"),
+    ("roll", "roll (Swin shift)"),
     ("fusion_maps", "B2 fusion (port kernel)"),
     ("conv", "convolution (cuDNN)"),
     ("grad", "convolution (cuDNN)"),
@@ -293,6 +303,54 @@ def profile_reference(torch, np, seed, card):
     return 0
 
 
+def profile_swin(torch, np, seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import (SWIN_TRAIN_CLIPS, swin_config, synthetic_frames,
+                            train_batch)
+    from openpvsg_torch.config import mask2former_swin
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.kernels import build
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    build.build()
+    cfg = swin_config(object_mask_thr=0.0, iou_thr=0.1)
+    seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+    frames = synthetic_frames(np, 2, 360, 480, seed)
+    seg.infer_windows_vps(frames, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        seg.infer_windows_vps(frames, 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(torch, prof, wall, {"card": card, "window": "mask2former_swin_vps",
+                                  "frames": 2, "dtype": "bfloat16"})
+    del seg
+    pvsg = mask2former_swin(True)
+    batch = train_batch(np, SWIN_TRAIN_CLIPS, pvsg.model.num_frames, (360, 480),
+                        (384, 480), 20, pvsg.model.num_classes, seed)
+    for assigner in ("hungarian", "lapjv"):
+        trainer = SegmenterTrainer(dataclasses.replace(pvsg.model, assigner=assigner),
+                                   pvsg.train, steps_per_epoch=1000, seed=seed)
+        for _ in range(2):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summarize(torch, prof, wall, {
+            "card": card, "train_step": "mask2former_swin_vps", "assigner": assigner,
+            "dtype": "float32", "clips": SWIN_TRAIN_CLIPS,
+            "frames": SWIN_TRAIN_CLIPS * pvsg.model.num_frames,
+            "assignment_ms": {k: v * 1e3 for k, v in trainer.last_timings.items()}})
+        del trainer
+    return 0
+
+
 def profile_relation(torch, np, seed, card):
     from torch.profiler import ProfilerActivity, profile
 
@@ -426,6 +484,9 @@ def main(argv=None) -> int:
                     help="profile one IPS batch and one tracked frame instead")
     ap.add_argument("--reference", action="store_true",
                     help="profile one MSDA window and one points train step instead")
+    ap.add_argument("--swin", action="store_true",
+                    help="profile one Swin-T window and one train step per assigner "
+                         "instead")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -458,6 +519,8 @@ def main(argv=None) -> int:
         return profile_ips(torch, np, args.seed, card.splitlines()[0])
     if args.reference:
         return profile_reference(torch, np, args.seed, card.splitlines()[0])
+    if args.swin:
+        return profile_swin(torch, np, args.seed, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

@@ -56,12 +56,14 @@ def _fpn_case(B, H, W, Cin, C, Cout, dt, dev, seed=0):
 # (B, H, W, Cin, C, Cout, groups): ragged pixel tiles (H*W not a multiple of
 # 128 or 64; H and W not multiples of the bf16 conv's 24x8 tile, H*W not
 # one of its 192 pixels), channel counts that are multiples of 8 but not of
-# 16 or 64, output widths below one tile, the main-path width (B = 2), and
-# the test CLI's IPS batch (8 frames of 360x640, padded to 384x640)
+# 16 or 64, output widths below one tile, the main-path width (B = 2), the
+# test CLI's IPS batch (8 frames of 360x640, padded to 384x640), and Swin-T's
+# stride-4 width (Cin 96: the bf16 GEMM reads K up to 128 through TMA's zero
+# fill)
 FPN_CASES = [(1, 16, 24, 32, 32, 16, 4), (2, 18, 30, 96, 64, 48, 8),
              (2, 32, 40, 136, 256, 200, 32), (1, 96, 120, 256, 256, 256, 32),
              (2, 20, 36, 64, 64, 64, 8), (2, 96, 120, 256, 256, 256, 32),
-             (8, 96, 160, 256, 256, 256, 32)]
+             (8, 96, 160, 256, 256, 256, 32), (2, 96, 120, 96, 256, 256, 32)]
 
 
 @pytest.mark.parametrize("case", FPN_CASES)
@@ -456,6 +458,24 @@ def _relation_video(seed, n=10, t=70, count=6):
         rels.append({"subject_index": s, "object_index": o,
                      "relation": int(rng.integers(0, 9)), "relation_span": span})
     return rng.standard_normal((n, t, 64), dtype=np.float32), rels
+
+
+@pytest.mark.parametrize("method", ["lapjv", "greedy"])
+def test_device_assigners_on_the_card_match_the_cpu(dev, method):
+    """LAPJV and greedy over a batch of problems on the card give the CPU's
+    assignments (the same float32 arithmetic per problem); LAPJV's equal
+    the host LAP's."""
+    from openpvsg_torch.train.assign import (BIG_COST, _host_lap, device_assign)
+
+    g = torch.Generator().manual_seed(3)
+    costs = torch.randn((3, 4, 100, 20), generator=g) * 3
+    costs[:, :, :, 15:] = BIG_COST  # padded targets
+    got = device_assign(costs.to(dev), method).cpu()
+    want = device_assign(costs, method)
+    assert torch.equal(got, want)
+    if method == "lapjv":
+        host = np.stack([_host_lap(c) for c in costs.reshape(12, 100, 20).numpy()])
+        np.testing.assert_array_equal(got.reshape(12, 100).numpy(), host)
 
 
 @pytest.mark.parametrize("name,pair_interaction", [

@@ -373,8 +373,11 @@ def test_config_json_reads_both_ways_and_refuses_unported_fields(tmp_path):
         model=dataclasses.replace(jcfg.Mask2FormerConfig(), int8_weights=True)), path)
     with pytest.raises(ValueError, match="int8_weights"):
         tcfg.load_config_file(path)
-    with pytest.raises(KeyError, match="A12"):
-        tcfg.get_config("mask2former_swin_vps")
+    # the Swin presets are ported: equal to the JAX package's
+    for name in ("mask2former_swin_vps", "mask2former_swin_ips"):
+        jcfg.save_config(jcfg.get_config(name), path)
+        assert tcfg.get_config(path) == tcfg.get_config(name)
+        assert tcfg.get_config(name).model.backbone.kind == "swin"
 
 
 def test_metrics_logger_writes_the_same_rows(tmp_path, monkeypatch):

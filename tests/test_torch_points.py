@@ -415,7 +415,8 @@ def _jax_loss(num_points, oversample_ratio, importance_sample_ratio, split):
 @pytest.mark.parametrize("field,value", [("match_downsample", 2), ("loss_layout", "target")])
 def test_points_combinations_raise_as_jax(field, value):
     """The two combinations the JAX package refuses with points raise its
-    errors; without points the values are still refused, naming A9c."""
+    errors; without points the values are accepted, as the JAX package
+    accepts them."""
     from openpvsg_tpu.train.segmenter import check_assigner_capacity
     from openpvsg_torch.config import check_training_config
 
@@ -426,5 +427,6 @@ def test_points_combinations_raise_as_jax(field, value):
         check_training_config(tcfg.Mask2FormerConfig(loss_sampling="points",
                                                      **{field: value}))
     assert str(got.value) == str(want.value)
-    with pytest.raises(ValueError, match=rf"model\.{field}=.*ROADMAP\.md A9c"):
-        check_training_config(tcfg.Mask2FormerConfig(**{field: value}))
+    check_assigner_capacity(jcfg.Mask2FormerConfig(
+        assigner="hungarian", **{field: value}), 0)
+    check_training_config(tcfg.Mask2FormerConfig(**{field: value}))

@@ -362,6 +362,56 @@ def test_reference_model_clis_load_no_jax(tmp_path):
     assert saved["model"]["split_thing_stuff"] is True
 
 
+def test_swin_and_training_option_clis_load_no_jax(tmp_path):
+    """``--config mask2former_swin_vps`` with the trainer's options through
+    ``--set`` (LAPJV, pooled matching, the target layout, bfloat16 mask
+    logits, focal, the semantic head): the train CLI for one epoch, the
+    test CLI and VPS stage 2 on its checkpoint, on the CPU at 32x32, each
+    in a fresh interpreter that loads no jax, flax or openpvsg_tpu module
+    and ends its log with a ``summary:`` line."""
+    from openpvsg_torch.tools import make_synthetic_data
+    from openpvsg_torch.tools.common import parse_summary
+
+    data, work = str(tmp_path / "data"), str(tmp_path / "work")
+    anno = make_synthetic_data.main(["--out", data, "--train-videos", "1",
+                                     "--val-videos", "1", "--frames", "2",
+                                     "--size", "32", "32"])
+    sets = ["--set", "model.num_queries=8", "model.num_things_classes=5",
+            "model.num_stuff_classes=3", "model.decoder.num_layers=1",
+            "model.decoder.ffn_channels=32", "model.pixel_decoder.encoder_layers=1",
+            "model.pixel_decoder.ffn_channels=32", "model.assigner=lapjv",
+            "model.match_downsample=2", "model.loss_layout=target",
+            "model.mask_logits_dtype=bfloat16", "model.focal_cls=true",
+            "model.with_sem_seg=true", "data.train_scale=32,32",
+            "data.crop_size=32,32", "train.samples_per_gpu=4"]
+    common = ["--config", "mask2former_swin_vps", "--data-dir", data,
+              "--anno-file", anno, "--work-dir", work, "--device", "cpu"]
+    ckpt = os.path.join(work, "mask2former_swin_vps", "epoch_1")
+    for name, args in (("train", common + ["--epochs", "1", "--max-instances", "8"]
+                        + sets),
+                       ("test", common + ["--eval", "PQ,VPQ", "--checkpoint", ckpt]
+                        + sets),
+                       ("prepare_query_tube_vps", common + ["--split", "val",
+                                                            "--checkpoint", ckpt]
+                        + sets)):
+        out = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", f"openpvsg_torch.tools.{name}",
+             *args], cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (name, out.stderr[-2000:])
+        loaded = {ln.split("|")[-1].strip() for ln in out.stderr.splitlines()
+                  if ln.startswith("import time:")}
+        assert {"openpvsg_torch.models.swin", "openpvsg_torch.tools.common"} <= loaded
+        bad = sorted(m for m in loaded if m.split(".")[0] in FORBIDDEN)
+        assert not bad, (name, bad)
+        assert parse_summary(out.stderr), name
+    with open(os.path.join(work, "mask2former_swin_vps", "config.json")) as f:
+        saved = json.load(f)["model"]
+    assert saved["backbone"]["kind"] == "swin"
+    assert (saved["assigner"], saved["loss_layout"]) == ("lapjv", "target")
+    assert os.path.exists(os.path.join(work, "val_save_qf", "1001_synth1",
+                                       "query_feats.pickle"))
+
+
 def test_stage2_clis_load_no_jax(tmp_path):
     """``python -m openpvsg_torch.tools.{prepare_query_tube_ips,
     prepare_query_tube_vps,eval_mots}`` on the CPU at a tiny size, each in a

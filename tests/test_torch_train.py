@@ -487,23 +487,47 @@ def test_checkpoint_round_trip_is_bitwise(jax_side, tmp_path, one_intra_op_threa
     ("assigner", "greedy"), ("mask_logits_dtype", "bfloat16"),
     ("match_downsample", 2), ("focal_cls", True),
     ("with_sem_seg", True), ("focal_gamma", 1.0),
-    ("focal_alpha", 0.5), ("sem_seg_weight", 0.5)])
+    ("focal_alpha", 0.5), ("sem_seg_weight", 0.5),
+    ("backbone.dtype", "bfloat16")])
 def test_unported_training_values_raise(field, value):
+    """The training values once refused as unported (A9c) now build a
+    trainer that takes a finite step; the batch carries ``gt_semantic``,
+    so the semantic head trains where it exists. A compute dtype other
+    than float32 is still refused, naming ROADMAP.md A9. The agreement of
+    each option with the JAX trainer is tests/test_torch_train_options.py's."""
+    import dataclasses
+
     from openpvsg_torch.train.segmenter import SegmenterTrainer
 
-    cfg = _tiny(tcfg, **{field: value})
-    with pytest.raises(ValueError, match=rf"model\.{field}=.*ROADMAP\.md A9c"):
-        SegmenterTrainer(cfg, _train_cfg(tcfg), device="cpu")
+    if field == "backbone.dtype":
+        cfg = tcfg.apply_overrides(_tiny(tcfg), {field: value})
+        with pytest.raises(ValueError, match=r"model\.backbone\.dtype=.*ROADMAP\.md A9 "):
+            SegmenterTrainer(cfg, _train_cfg(tcfg), device="cpu")
+        return
+    cfg = dataclasses.replace(_tiny(tcfg), **{field: value})
+    trainer = SegmenterTrainer(cfg, _train_cfg(tcfg), device="cpu")
+    batch = _batch()
+    batch["gt_semantic"] = np.random.default_rng(8).integers(
+        0, cfg.num_classes + 1, (B, T, H // 4, W // 4))
+    logs = trainer.step(batch)
+    assert np.isfinite(logs["loss"])
+    assert ("loss_sem_seg" in logs) == cfg.with_sem_seg
+    assert trainer.last_assigned.shape == (4, B, 8)
 
 
 @pytest.mark.parametrize("field,value", [
     ("match_downsample", 0), ("loss_layout", "rows"), ("mask_logits_dtype", "bf16")])
 def test_invalid_training_values_raise(field, value):
-    """Values the JAX package rejects as invalid are refused too."""
+    """Values the JAX package rejects as invalid are refused with its
+    message (``check_assigner_capacity``)."""
+    from openpvsg_tpu.train.segmenter import check_assigner_capacity
     from openpvsg_torch.config import check_training_config
 
-    with pytest.raises(ValueError, match=rf"model\.{field}={value!r}"):
+    with pytest.raises(ValueError) as want:
+        check_assigner_capacity(_tiny(jcfg, **{field: value}), 0)
+    with pytest.raises(ValueError, match=rf"model\.{field}") as got:
         check_training_config(_tiny(tcfg, **{field: value}))
+    assert str(got.value) == str(want.value)
     check_training_config(_tiny(tcfg))
 
 
