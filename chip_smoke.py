@@ -188,9 +188,46 @@ Phases, each printing one JSON line:
              the loss within 1e-3 (1e-2 with bf16 logits) relative and every
              gradient within 1e-2 (5e-2) of its scale. Fails on any check
              above, a non-finite loss, or a B1 or B2 launch in training.
-14. the ``{"kernels": [...]}`` line (since phase 13 with each kernel's
-   ``swin_launches`` and B1's Swin-shape error, ms, bound and library ms),
-   then the last line
+14. end2end — stages 3-5 and end-to-end serving at full width, from the
+             seed: (a) a rich synthetic PVSG root (``make_synthetic_data
+             --style rich --oracle-stage2``: 4 train and 2 val videos of 120
+             360x640 frames, 2-5 moving things over a floor, GT-derived
+             tubes and random-projection query features), then, each in its
+             own process whose ``summary:`` line the script reads,
+             ``prepare_rel_set --jobs 4`` on both splits (videos/s),
+             ``rel_train --epochs 1`` (``relation_head('transformer')``, d
+             256, 57 relations; step ms, losses), and ``rel_test`` and
+             ``rel_test_full`` on its epoch_1 and on a reference ``.pth``
+             bundle written from the seed at the preset's widths (R@K,
+             reported); (b) ``end2end_inference --eval`` on the 2 val
+             videos, VPS (``mask2former_vps``, window 2) then IPS
+             (``mask2former_ips``, batches of 8, the ``imagenet50 s3``
+             encoder in float32), bf16 segmenters with random weights from
+             the seed (``object_mask_thr=0.0``, ``iou_thr=0.1``) and
+             rel_train's relation head: frames/s, segment and relation
+             seconds, tubes and triplets per video, peak GiB, protocol
+             metrics (reported); (c) ``StreamingPVSG`` in this process on
+             128 360x480 frames pushed one at a time (window 2,
+             relation_interval 16, num_top_pairs 20, max_history 64), launch
+             counts zeroed just before and read just after: per-window ms
+             (median, p95), scoring ms, peak GiB, the ring's device; then the
+             host backend on the same stream; then, TF32 off, B1 at end2end
+             VPS's ``f0 (2, 96, 160, 256)`` and B2 at its ``(2, 100, 96,
+             160)`` logits cropped to 360x640 against their plain versions
+             (phase 3's tolerances; its IPS batches have phase 10's
+             shapes). It fails when a CLI exits non-zero, a video writes no
+             ``relations.pickle``, a loss is not finite, a relation CLI
+             launches B1 or B2, end2end (VPS or IPS) or streaming does not
+             launch both, a ``triplets.json`` or (with a
+             ``relations.pickle``) ``protocol_metrics.json`` is missing, the
+             ring is not on the card, the two streaming backends' triplets
+             differ where adjacent scores are more than 1e-4 apart, or a
+             kernel disagrees with its plain version.
+15. the ``{"kernels": [...]}`` line (since phase 13 with each kernel's
+   ``swin_launches`` and B1's Swin-shape error, ms, bound and library ms;
+   since phase 14 with ``end2end_launches`` (VPS plus IPS, and each),
+   ``streaming_launches`` and each kernel's error, ms, plain ms, bound and
+   library ms at end2end VPS's shape), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -1405,7 +1442,7 @@ def run_cli(name, args, timeout=600):
     """``python -m openpvsg_torch.tools.<name> args`` from the repository
     root; fails on a non-zero exit. Returns (seconds, its summary line or
     None, its standard output)."""
-    from openpvsg_torch.tools.common import parse_summary
+    from openpvsg_torch.tools.common import SUMMARY_PREFIX, parse_summary
 
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", f"openpvsg_torch.tools.{name}", *args],
@@ -1414,7 +1451,7 @@ def run_cli(name, args, timeout=600):
     seconds = time.perf_counter() - t0
     if out.returncode != 0:
         fail(f"{name} {' '.join(args)} exited {out.returncode}: {out.stderr[-3000:]}")
-    summary = parse_summary(out.stderr) if name in ("train", "test") else None
+    summary = parse_summary(out.stderr) if SUMMARY_PREFIX in out.stderr else None
     return seconds, summary, out.stdout
 
 
@@ -2397,6 +2434,297 @@ def run_swin(torch, np, seed, gen, dev, wrappers):
     return fpn_rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: stages 3-5 and end2end through the CLIs, and the streaming engine
+# ---------------------------------------------------------------------------
+
+STREAM_RANK_TOL = 1e-4  # triplets closer than this in probability may swap
+
+
+def reference_relation_bundle(torch, seed, model_name="transformer", d=256, heads=8,
+                              ffn=512, temporal_heads=4, temporal_ffn=512,
+                              num_relations=57):
+    """The reference's four relation models (its rel_train's ``.pth``
+    bundle, tests/test_convert.py:70) at the ``relation_head(model_name)``
+    widths, random from the seed: torch encoder layers, the pair MLP, and
+    the temporal transformer or, for ``conv``, one Conv1d(2d, 2d, 5) + ReLU.
+    tests/test_torch_e2e.py builds its bundles with this function too."""
+    nn = torch.nn
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+
+        def encoder(dim, h, f, layers):
+            m = nn.Module()
+            m.transformer_encoder = nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(dim, h, f, dropout=0.0), layers,
+                enable_nested_tensor=False)
+            return m
+
+        sub, obj = encoder(d, heads, ffn, 2), encoder(d, heads, ffn, 2)
+        pair = nn.Module()
+        pair.pair_ffn = nn.Sequential(nn.Linear(2 * d, 1024), nn.ReLU(), nn.Linear(1024, 1))
+        if model_name == "transformer":
+            rel = encoder(2 * d, temporal_heads, temporal_ffn, 1)
+            rel.layer_norm = nn.LayerNorm(2 * d)
+        else:
+            rel = nn.Module()
+            rel.conv_layers = nn.Sequential(nn.Conv1d(2 * d, 2 * d, 5, padding=2), nn.ReLU())
+        rel.fc1, rel.fc2 = nn.Linear(2 * d, d), nn.Linear(d, d // 2)
+        rel.span_head = nn.Linear(d // 2, num_relations)
+        rel.pred_head = nn.Linear(d // 2, num_relations)
+    return {"subject_encoder": sub.state_dict(), "object_encoder": obj.state_dict(),
+            "pair_proposal_model": pair.state_dict(), "relation_model": rel.state_dict()}
+
+
+def eval_row(seconds, summary, printed):
+    row = {"process_seconds": seconds, "videos": summary["videos"],
+           "eval_seconds": summary["seconds"],
+           "printed": [ln for ln in printed.splitlines() if "Recall" in ln],
+           "launches": summary["launches"]}
+    for key in ("pair_recall_20", "metrics", "soft_metrics"):
+        if key in summary:
+            row[key] = summary[key]
+    return row
+
+
+def run_rel_clis(np, torch, seed, tmp, problems):
+    """(a): the rich synthetic root with oracle stage 2, ``prepare_rel_set
+    --jobs 4`` on both splits, ``rel_train --epochs 1``, then ``rel_test``
+    and ``rel_test_full`` on its epoch_1 and on a reference bundle. Returns
+    the root's paths, the epoch_1 checkpoint and the launch counts of every
+    CLI."""
+    data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+    anno = os.path.join(data, "pvsg.json")
+    gen_s, _, _ = run_cli("make_synthetic_data", [
+        "--out", data, "--style", "rich", "--train-videos", "4", "--val-videos", "2",
+        "--frames", "120", "--size", "360", "640", "--oracle-stage2", work,
+        "--seed", str(seed)])
+    with open(anno) as f:
+        meta = json.load(f)
+    emit({"phase": "end2end", "part": "data", "seconds": gen_s,
+          "videos": {d["video_id"]: {"objects": len(d["objects"]),
+                                     "relations": len(d["relations"])} for d in meta["data"]},
+          "classes": len(meta["objects"]["thing"]) + len(meta["objects"]["stuff"]),
+          "relations": len(meta["relations"])})
+    common = ["--config", "relation_transformer", "--data-dir", data, "--anno-file", anno,
+              "--work-dir", work]
+    launches = {}
+    for split in ("train", "val"):
+        seconds, s, _ = run_cli("prepare_rel_set", common + ["--split", split, "--jobs", "4"])
+        row = {"process_seconds": seconds, **s, "videos_per_s": s["videos"] / s["seconds"]}
+        emit({"phase": "end2end", "part": f"prepare_rel_set_{split}", **row})
+        launches[f"prepare_rel_set_{split}"] = s["launches"]
+        if s["failed"] or s["written"] != s["videos"] or not s["videos"]:
+            problems.append(f"prepare_rel_set {split}: {s['written']} of {s['videos']} "
+                            f"videos wrote relations.pickle, failed {s['failed']}")
+    seconds, tr, _ = run_cli("rel_train", common + ["--epochs", "1", "--ps-type", "vps"])
+    steps_ms = [t * 1e3 for t in tr["step_seconds_each"]]
+    row = {"process_seconds": seconds, "videos": tr["videos"], "steps": tr["steps"],
+           "order": tr["order"], "step_ms": steps_ms,
+           "step_ms_median": statistics.median(steps_ms),
+           "videos_per_s": tr["steps"] / sum(tr["step_seconds_each"]),
+           "losses": tr["losses"], "losses_finite": all(map(math.isfinite, tr["losses"])),
+           "eval_seconds": tr["eval_seconds"], "pair_recall_20": tr["pair_recall_20"],
+           "metrics": tr["metrics"], "peak_gib": tr["peak_gib"], "launches": tr["launches"]}
+    emit({"phase": "end2end", "part": "rel_train", **row})
+    launches["rel_train"] = tr["launches"]
+    if not row["losses_finite"] or not tr["losses"]:
+        problems.append(f"rel_train: a loss is not finite: {tr['losses']}")
+    ckpt = tr["checkpoints"][-1]
+    bundle = os.path.join(tmp, "relation_bundle.pth")
+    torch.save(reference_relation_bundle(torch, seed), bundle)
+    for weights, path in (("epoch_1", ckpt), ("bundle", bundle)):
+        for tool in ("rel_test", "rel_test_full"):
+            seconds, s, printed = run_cli(tool, common + ["--checkpoint", path, "--split", "val"])
+            emit({"phase": "end2end", "part": f"{tool}_{weights}",
+                  **eval_row(seconds, s, printed)})
+            launches[f"{tool}_{weights}"] = s["launches"]
+    return data, anno, ckpt, launches
+
+
+def run_end2end_clis(tmp, data, anno, ckpt, problems):
+    """(b): ``end2end_inference --eval`` on the val videos, VPS (window 2)
+    then IPS (batches of 8, the ``imagenet50 s3`` encoder in float32), with
+    the relation head rel_train wrote. Returns each run's launch counts."""
+    launches = {}
+    for ps, config in (("vps", "mask2former_vps"), ("ips", "mask2former_ips")):
+        out_dir = os.path.join(tmp, f"end2end_{ps}")
+        seconds, s, _ = run_cli("end2end_inference", [
+            "--config", config, "--ps-type", ps, "--data-dir", data, "--anno-file", anno,
+            "--split", "val", "--out-dir", out_dir, "--relation-checkpoint", ckpt,
+            "--eval",
+            "--set", "model.object_mask_thr=0.0", "model.iou_thr=0.1"])
+        videos = s["per_video"]
+        frames = sum(v["frames"] for v in videos)
+        seg_s = sum(v["segment_seconds"] for v in videos)
+        rel_s = sum(v.get("relation_seconds", 0.0) for v in videos)
+        row = {"process_seconds": seconds, "dtype": s["dtype"], "frames": frames,
+               "frames_per_s": frames / (seg_s + rel_s), "segment_seconds": seg_s,
+               "relation_seconds": rel_s, "relation_share": rel_s / (seg_s + rel_s),
+               "per_video": videos, "protocol": s.get("protocol"),
+               "peak_gib": s["peak_gib"], "launches": s["launches"]}
+        emit({"phase": "end2end", "part": f"end2end_{ps}", **row})
+        launches[ps] = s["launches"]
+        if not all(s["launches"].values()):
+            problems.append(f"end2end {ps} did not launch every kernel: {s['launches']}")
+        for v in videos:
+            root = os.path.join(out_dir, v["vid"])
+            if not os.path.exists(os.path.join(root, "triplets.json")):
+                problems.append(f"end2end {ps}: {v['vid']} wrote no triplets.json")
+            if (os.path.exists(os.path.join(root, "relations.pickle"))
+                    and not os.path.exists(os.path.join(out_dir, "protocol_metrics.json"))):
+                problems.append(f"end2end {ps}: relations.pickle but no protocol_metrics.json")
+    return launches
+
+
+def stream_frames(np, n, seed, h=360, w=480):
+    """Noise frames with blocks that cross the frame (wrapping), one of
+    them only in the first half: tubes appear, persist and age out."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 255, (n, h, w, 3), dtype=np.uint8)
+    for t in range(n):
+        x = (40 + 6 * t) % (w - 120)
+        frames[t, 60:180, x:x + 120] = (250, 30, 30)
+        if t < n // 2:
+            y = (200 + 2 * t) % (h - 160)
+            frames[t, y:y + 60, 300:380] = (30, 30, 250)
+        frames[t, 300:] = (30, 250, 30)
+    return frames
+
+
+def run_streaming(torch, np, seed, wrappers, problems, n_frames=128):
+    """(c): ``StreamingPVSG`` on ``n_frames`` 360x480 frames pushed one at
+    a time (window 2, relation_interval 16, num_top_pairs 20, max_history
+    64) with the device ring, then the host backend on the same stream.
+    Returns the device run's launch counts."""
+    from openpvsg_torch.config import relation_head
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.streaming import StreamingPVSG, triplets_agree
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.weights import random_relation_state_dict, random_state_dict
+
+    cfg = stage2_config()
+    seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+    rel_cfg = relation_head("transformer").relation
+    rel = RelationModel.from_config(rel_cfg)
+    rel.load_state_dict(random_relation_state_dict(rel_cfg, seed))
+    frames = stream_frames(np, n_frames, seed)
+    kw = dict(window=2, relation_interval=16, num_top_pairs=20, max_history=64)
+    for f in frames[:4]:  # warm-up: the first forward builds the kernels' plans
+        seg.infer_window_vps(np.stack([f, f]))
+    runs = {}
+    for backend, device_history in (("device", True), ("host", False)):
+        engine = StreamingPVSG(seg, rel, device_history=device_history, **kw)
+        score_ms = []
+        score = engine._score_relations
+
+        def timed_score():
+            t0 = time.perf_counter()
+            out = score()
+            score_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        engine._score_relations = timed_score
+        windows = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers:
+            fn.launches = 0
+        t_run = time.perf_counter()
+        for f in frames:
+            t0 = time.perf_counter()
+            r = engine.push(f)
+            if r is not None:
+                windows.append({"ms": (time.perf_counter() - t0) * 1e3, "out": r,
+                                "scores": engine.last_scores if r["triplets"] is not None
+                                else None})
+        final = engine.finish()
+        final_scores = engine.last_scores
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = launch_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = [w["ms"] for w in windows]
+        plain = [w["ms"] for w in windows if w["out"]["triplets"] is None]
+        row = {"backend": backend, "frames": n_frames, "frame_hw": [360, 480], **kw,
+               "dtype": "bfloat16", "seconds": wall, "frames_per_s": n_frames / wall,
+               "window_ms_median": statistics.median(ms),
+               "window_ms_p95": float(np.percentile(ms, 95)),
+               "window_ms_median_unscored": statistics.median(plain),
+               "scorings": len(score_ms), "score_ms": score_ms,
+               "score_ms_median": statistics.median(score_ms),
+               "tubes_seen": final["num_tubes"], "final_triplets": len(final["triplets"]),
+               "peak_gib": peak, "launches": launches}
+        if device_history:
+            ring = engine._ring
+            row.update(ring_device=str(ring.hist.device), ring_shape=list(ring.hist.shape),
+                       live_tubes=len(ring.live_tids()),
+                       aged_out=final["num_tubes"] - len(ring.live_tids()),
+                       t_valid=ring.t_valid, ring_lo=ring.lo)
+            if ring.hist.device.type != "cuda":
+                problems.append(f"the ring lives on {ring.hist.device}, not the card")
+            if not all(launches.values()):
+                problems.append(f"streaming did not launch every kernel: {launches}")
+        emit({"phase": "end2end", "part": f"streaming_{backend}", **row})
+        runs[backend] = {"windows": windows, "final": final, "row": row,
+                         "final_scores": final_scores}
+    dev, host = runs["device"], runs["host"]
+    same_pans = all(np.array_equal(a, b) for x, y in zip(dev["windows"], host["windows"])
+                    for a, b in zip(x["out"]["pan_results"], y["out"]["pan_results"]))
+    scored = exact = agree = 0
+    for x, y in zip(dev["windows"], host["windows"]):
+        if x["out"]["triplets"] is None and y["out"]["triplets"] is None:
+            continue
+        scored += 1
+        if (x["out"]["triplets"] is None) != (y["out"]["triplets"] is None):
+            continue
+        exact += x["out"]["triplets"] == y["out"]["triplets"]
+        agree += triplets_agree(y["out"]["triplets"], x["out"]["triplets"], x["scores"],
+                                STREAM_RANK_TOL)
+    final_ok = triplets_agree(host["final"]["triplets"], dev["final"]["triplets"],
+                              dev["final_scores"], STREAM_RANK_TOL)
+    row = {"pan_results_equal": same_pans, "scorings": scored,
+           "scorings_exactly_equal": exact, "scorings_equal_where_separated": agree,
+           "final_equal_where_separated": final_ok, "rank_tol": STREAM_RANK_TOL,
+           "ok": same_pans and agree == scored and final_ok}
+    emit({"phase": "end2end", "part": "streaming_backends", **row})
+    if not row["ok"]:
+        problems.append(f"the streaming backends disagree: {row}")
+    return dev["row"]["launches"]
+
+
+def run_end2end(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
+    """Phase 14: (a) stages 3-5 and (b) end2end_inference through the
+    CLIs, each in its own process (their launch counts come from their
+    summary lines), (c) the streaming engine in this process (360x480
+    frames: phases 3 and 5 hold both kernels at its shapes), then B1 and B2
+    against their plain versions at (b)'s VPS shapes (its synthetic root's
+    360x640 frames, padded to 384x640), TF32 off. Returns the launch counts of
+    end2end (VPS, IPS) and of streaming, and the kernel rows at end2end
+    VPS's shapes (its IPS batches have phase 10's shapes)."""
+    t_phase = time.perf_counter()
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data, anno, ckpt, rel_launches = run_rel_clis(np, torch, seed, tmp, problems)
+        for name, counts in rel_launches.items():
+            if any(counts.values()):
+                problems.append(f"{name} launched a kernel of the segmenter: {counts}")
+        e2e_launches = run_end2end_clis(tmp, data, anno, ckpt, problems)
+    stream_launches = run_streaming(torch, np, seed, wrappers, problems)
+    # float32 parity, TF32 off (phase 13 leaves cuDNN's on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": False})
+    fpn_rows = check_fpn(torch, gen, dev, B=2, H=96, W=160, at="end2end_vps")
+    fusion_rows = check_fusion(torch, gen, dev, sm_clock_hz, N=2, h=96, w=160,
+                               ori=(360, 640), at="end2end_vps")
+    emit({"phase": "end2end", "ok": not problems, "problems": problems,
+          "seconds": time.perf_counter() - t_phase})
+    if problems:
+        fail("end2end: " + "; ".join(problems))
+    return e2e_launches, stream_launches, fpn_rows, fusion_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2504,7 +2832,14 @@ def main(argv=None) -> int:
     # and read just after), training and the trainer's options
     swin_fpn, swin_launches = run_swin(torch, np, args.seed, gen, dev, wrappers)
 
-    # 14. the kernels line and the result
+    # 14. stages 3-5 and end2end through the CLIs (their launch counts come
+    # from their summary lines), the streaming engine (its launch counts are
+    # zeroed just before its run and read just after), then B1 and B2 at
+    # end2end VPS's shapes
+    e2e_launches, stream_launches, e2e_fpn, e2e_fusion = run_end2end(
+        torch, np, args.seed, gen, dev, float(clock) * 1e6, wrappers)
+
+    # 15. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -2534,7 +2869,19 @@ def main(argv=None) -> int:
                      ips_library_ms=ips["library_ms"])
         ips2 = ips2_fusion if name == "fusion_maps" else ips2_fpn[(name, "bfloat16")]
         entry.update(reference_model_launches=ref_launches[fn.__name__],
-                     swin_launches=swin_launches[fn.__name__])
+                     swin_launches=swin_launches[fn.__name__],
+                     end2end_launches=(e2e_launches["vps"][fn.__name__]
+                                       + e2e_launches["ips"][fn.__name__]),
+                     end2end_vps_launches=e2e_launches["vps"][fn.__name__],
+                     end2end_ips_launches=e2e_launches["ips"][fn.__name__],
+                     streaming_launches=stream_launches[fn.__name__])
+        e2e = e2e_fusion["smoke"] if name == "fusion_maps" else e2e_fpn[(name, "bfloat16")]
+        entry.update(end2end_vps_shape=([2, 100, 96, 160] if name == "fusion_maps"
+                                        else [2, 96, 160, 256]),
+                     end2end_vps_max_abs_err=e2e["max_abs_err"],
+                     end2end_vps_ms=e2e["ms"], end2end_vps_plain_ms=e2e["plain_ms"],
+                     end2end_vps_bound_ms=e2e["bound_ms"],
+                     end2end_vps_library_ms=e2e["library_ms"])
         if name != "fusion_maps":
             sw = swin_fpn[(name, "bfloat16")]
             entry.update(swin_shape=[2, 96, 120, 96], swin_max_abs_err=sw["max_abs_err"],

@@ -2,7 +2,8 @@
 for VPS the MinVIS query stitching, the port of
 ``openpvsg_tpu/infer/segmenter.py:31,62-363``: the IPS half
 (``infer_frames_ips`` and its async/package halves, the test CLI's PQ path)
-and the VPS half (stage 2 and the test CLI's VPQ path).
+and the VPS half (stage 2 and the test CLI's VPQ path, and the serial
+``infer_window_vps`` of the streaming engine).
 
 Frames enter raw (uint8 RGB, unpadded); normalization and padding run inside
 the forward on the device, so only uint8 crosses to the card. The forward
@@ -156,6 +157,20 @@ class SegmenterInference:
         to host per-frame dicts."""
         fusion, query = handle
         return self._package(fusion, query)
+
+    def infer_window_vps(self, frames: np.ndarray,
+                         ori_hw: Optional[Tuple[int, int]] = None,
+                         prev_embds: Optional[np.ndarray] = None,
+                         return_embds: bool = False):
+        """One MinVIS window, served serially (the streaming engine's call):
+        the forward, the stitch (chained from ``prev_embds`` (Q, C), the
+        previous window's last aligned embeddings, when given), the aligned
+        clip-mean class logits and the fusion of every frame. Returns
+        per-frame outputs (and the last frame's aligned embeddings with
+        return_embds)."""
+        return self.infer_windows_vps(frames, len(frames), prev_embds=prev_embds,
+                                      chain_windows=prev_embds is not None,
+                                      ori_hw=ori_hw, return_embds=return_embds)
 
     def infer_windows_vps(self, frames: np.ndarray, window: int,
                           prev_embds: Optional[np.ndarray] = None,

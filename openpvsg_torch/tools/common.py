@@ -78,6 +78,32 @@ def collect_rank_results(work_dir: str, name: str, payload):
     return [payload]
 
 
+def load_relation_params(checkpoint: str, model_name: str, device, cfg=None):
+    """A ``RelationModel`` (``cfg``, a ``RelationHeadConfig``, gives its
+    capacity; the preset's defaults without one) on ``device`` with the
+    weights of ``checkpoint``: a port relation checkpoint (the ``epoch_N``
+    files of ``rel_train``) or the reference's ``.pth`` bundle
+    (``train/checkpoint.py:load_relation_state``)."""
+    from openpvsg_torch.config import RelationHeadConfig
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.train.checkpoint import load_relation_state
+
+    model = RelationModel.from_config(cfg or RelationHeadConfig(),
+                                      model_name=model_name)
+    model.load_state_dict(load_relation_state(checkpoint, model_name), strict=True)
+    return model.to(device).eval()
+
+
+def make_relation_executor(args):
+    """The one-device stand-in for the JAX tools' ``maybe_mesh`` +
+    ``make_relation_executor``: always None, the single-device relation
+    path. ``--n-time`` above 1 raises (``reject_unused_n_time``), as the
+    ``--dist-*`` flags do in ``load_config``: the (data, time) mesh and
+    ``TimeShardedRelation`` are ROADMAP.md A13."""
+    reject_unused_n_time(args)
+    return None
+
+
 def load_config(args) -> PVSGConfig:
     reject_distributed(args)
     cfg = get_config(args.config)

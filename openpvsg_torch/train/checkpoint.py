@@ -21,8 +21,11 @@ The reference's own checkpoints, mmdet 2.x ``.pth`` files of Mask2Former
 ``openpvsg_tpu/train/checkpoint.py:87-254``, into the port's state dict for
 a config with ``pixel_decoder.encoder='msda'``. An mmdet Swin backbone
 state dict converts with ``convert_mmdet_swin`` into the port's
-``SwinTransformer`` names. Loading the JAX package's msgpack checkpoints is
-not ported (ROADMAP.md A9).
+``SwinTransformer`` names. The reference's four-model relation ``.pth``
+bundle converts with ``convert_relation_bundle`` into the port's
+``RelationModel`` state dict; ``load_relation_state`` reads either that
+bundle or a ``save_relation_checkpoint`` file. Loading the JAX package's
+msgpack checkpoints is not ported (ROADMAP.md A9).
 """
 from __future__ import annotations
 
@@ -94,15 +97,14 @@ def load_model_state(path: str):
 # mmdet Mask2Former checkpoints
 # ---------------------------------------------------------------------------
 
-def load_mmdet_checkpoint(path: str, trusted: bool = False) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of an mmdet ``.pth`` file (or the file's dict when
-    it has none), on the CPU. Read with ``weights_only=True`` (mmdet 2.25's
-    ``meta`` holds plain types). A file that needs other classes raises
+def _torch_load(path: str, trusted: bool):
+    """A ``.pth`` file's object, on the CPU, read with
+    ``weights_only=True``. A file that needs other classes raises
     ``pickle.UnpicklingError``, unless ``trusted=True``: then it is read
     again as a full pickle, with a warning, since a full unpickle can run
     code of the file's making."""
     try:
-        obj = torch.load(path, map_location="cpu", weights_only=True)
+        return torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as e:
         if not trusted:
             raise pickle.UnpicklingError(
@@ -111,7 +113,15 @@ def load_mmdet_checkpoint(path: str, trusted: bool = False) -> Dict[str, torch.T
                 "whose origin you trust") from e
         warnings.warn(f"{path}: not loadable with weights_only=True ({e}); "
                       "reading it as a full pickle (trusted=True)")
-        obj = torch.load(path, map_location="cpu", weights_only=False)
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_mmdet_checkpoint(path: str, trusted: bool = False) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of an mmdet ``.pth`` file (or the file's dict when
+    it has none), on the CPU. Read with ``weights_only=True`` (mmdet 2.25's
+    ``meta`` holds plain types); a file that needs other classes raises
+    unless ``trusted=True`` (``_torch_load``)."""
+    obj = _torch_load(path, trusted)
     return obj.get("state_dict", obj) if isinstance(obj, dict) else obj
 
 
@@ -284,4 +294,114 @@ def convert_mmdet_swin(sd: Mapping, src: str = "backbone") -> Dict[str, torch.Te
         if f"{src}.norm{i}.weight" in sd:
             for leaf in ("weight", "bias"):
                 put(f"out_norm{i}.{leaf}", sd[f"{src}.norm{i}.{leaf}"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the reference's relation bundle
+# ---------------------------------------------------------------------------
+
+RELATION_BUNDLE_PARTS = ("subject_encoder", "object_encoder",
+                         "pair_proposal_model", "relation_model")
+
+
+def load_relation_state(path: str, model_name: str = "transformer",
+                        trusted: bool = False) -> Dict[str, torch.Tensor]:
+    """The float32 state dict of a ``RelationModel`` from either file: a
+    ``save_relation_checkpoint`` file (its ``"model"`` entry) or the
+    reference's relation ``.pth`` bundle (``{part: state_dict}`` for
+    ``RELATION_BUNDLE_PARTS``, converted by ``convert_relation_bundle``
+    for ``model_name``). Read on the CPU with ``weights_only=True``; a file
+    that refuses it raises unless ``trusted=True``, as
+    ``load_mmdet_checkpoint``."""
+    obj = _torch_load(path, trusted)
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: neither a relation checkpoint nor a "
+                         "relation bundle")
+    if "model" in obj:
+        return obj["model"]
+    return convert_relation_bundle(obj, model_name)
+
+
+def convert_relation_bundle(bundle: Mapping[str, Mapping],
+                            model_name: str = "transformer"
+                            ) -> Dict[str, torch.Tensor]:
+    """The reference's four-model relation bundle (``subject_encoder`` and
+    ``object_encoder``: ``transformer_encoder.layers.i`` of torch encoder
+    layers; ``pair_proposal_model``: ``pair_ffn.{0,2}``; ``relation_model``:
+    the temporal model ``model_name`` and its ``fc1``, ``fc2``,
+    ``span_head``, ``pred_head``; tensors or arrays) -> the float32 state
+    dict of the port's ``RelationModel`` (the port of
+    ``openpvsg_tpu/train/checkpoint.py:345-379``, which walks the same
+    keys). Torch's ``in_proj`` is split into q/k/v rows; the pair MLP's
+    first weight is kept in the flax layout (transposed), as the port's
+    ``PairProposalNetwork`` holds it. The layer counts are the bundle's.
+    Raises ValueError naming the keys read and absent and the keys left
+    over."""
+    out: Dict[str, torch.Tensor] = {}
+    used, missing = set(), []
+
+    def get(part, key):
+        sd = bundle.get(part, {})
+        if key not in sd:
+            missing.append(f"{part}/{key}")
+            return None
+        used.add((part, key))
+        return _array(sd[key])
+
+    def put(key, arr):
+        if arr is not None:
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    def weight_bias(part, src, dst):
+        for leaf in ("weight", "bias"):
+            put(f"{dst}.{leaf}", get(part, f"{src}.{leaf}"))
+
+    def encoder_layers(part, dst):
+        i = 0
+        while f"transformer_encoder.layers.{i}.self_attn.in_proj_weight" in bundle.get(part, {}):
+            src, d = f"transformer_encoder.layers.{i}", f"{dst}.layer_{i}"
+            w = get(part, f"{src}.self_attn.in_proj_weight")
+            b = get(part, f"{src}.self_attn.in_proj_bias")
+            c = w.shape[1]
+            for k, name in enumerate(("q_proj", "k_proj", "v_proj")):
+                put(f"{d}.self_attn.{name}.weight", w[k * c:(k + 1) * c])
+                if b is not None:
+                    put(f"{d}.self_attn.{name}.bias", b[k * c:(k + 1) * c])
+            for name in ("self_attn.out_proj", "linear1", "linear2", "norm1", "norm2"):
+                weight_bias(part, f"{src}.{name}", f"{d}.{name}")
+            i += 1
+
+    for which in ("subject_encoder", "object_encoder"):
+        encoder_layers(which, which)
+    fc1 = get("pair_proposal_model", "pair_ffn.0.weight")
+    put("pair_proposal.fc1_kernel", None if fc1 is None else fc1.T)
+    put("pair_proposal.fc1_bias", get("pair_proposal_model", "pair_ffn.0.bias"))
+    weight_bias("pair_proposal_model", "pair_ffn.2", "pair_proposal.fc2")
+
+    rm = bundle.get("relation_model", {})
+    if model_name == "transformer":
+        encoder_layers("relation_model", "temporal")
+        weight_bias("relation_model", "layer_norm", "temporal.final_norm")
+    elif model_name == "conv":
+        i = 0
+        while f"conv_layers.{i * 2}.weight" in rm:  # Conv1d, ReLU, ...
+            weight_bias("relation_model", f"conv_layers.{i * 2}", f"temporal.conv_{i}")
+            i += 1
+    for head in ("fc1", "fc2", "span_head", "pred_head"):
+        weight_bias("relation_model", head, f"temporal.heads.{head}")
+
+    unused = sorted(f"{part}/{k}" for part in bundle for k in bundle[part]
+                    if (part, k) not in used)
+    problems = []
+    absent = [p for p in RELATION_BUNDLE_PARTS if p not in bundle]
+    if absent:
+        problems.append(f"parts absent {absent}")
+    if missing:
+        problems.append(f"{len(missing)} keys absent {missing[:8]}")
+    if unused:
+        problems.append(f"{len(unused)} keys the {model_name!r} model does not "
+                        f"use {unused[:8]}")
+    if problems:
+        raise ValueError("convert_relation_bundle: " + "; ".join(problems))
     return out

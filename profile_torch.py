@@ -65,6 +65,15 @@ warm-up steps, and one evaluation video (100 tubes, 1200 frames, padded to
 the 100 x 2048 evaluation bucket, 100 pairs) after one warm-up video. For
 each: wall time, device busy time and idle share, time by kernel family and
 the top kernels.
+
+With ``--streaming`` it instead profiles ``StreamingPVSG`` as
+``chip_smoke.py``'s ``end2end`` phase (c) runs it (the full-width
+``mask2former_vps`` segmenter in bf16 and ``relation_head('transformer')``,
+random weights from the seed; window 2, relation_interval 16, 20 pairs,
+max_history 64, 360x480 frames): after 28 frames, one window that scores
+no relation (frames 28-29) and one that does (frames 30-31). For each: wall
+time, device busy time and idle share, time by kernel family and the top
+kernels.
 """
 from __future__ import annotations
 
@@ -86,7 +95,7 @@ FAMILIES = (
     ("fpn_", "B1 fpn (port kernel)"),
     ("grid_sampler", "grid_sample (MSDA, points)"),
     ("sort", "sort"),
-    ("roll", "roll (Swin shift)"),
+    ("roll_cuda", "roll (Swin shift)"),  # not "roll": unrolled_elementwise_kernel
     ("fusion_maps", "B2 fusion (port kernel)"),
     ("conv", "convolution (cuDNN)"),
     ("grad", "convolution (cuDNN)"),
@@ -467,6 +476,43 @@ def profile_ips(torch, np, seed, card):
     return 0
 
 
+def profile_streaming(torch, np, seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import stage2_config, stream_frames
+    from openpvsg_torch.config import relation_head
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.streaming import StreamingPVSG
+    from openpvsg_torch.kernels import build
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.weights import random_relation_state_dict, random_state_dict
+
+    build.build()
+    cfg = stage2_config()
+    seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+    rel_cfg = relation_head("transformer").relation
+    rel = RelationModel.from_config(rel_cfg)
+    rel.load_state_dict(random_relation_state_dict(rel_cfg, seed))
+    engine = StreamingPVSG(seg, rel, window=2, relation_interval=16,
+                           num_top_pairs=20, max_history=64)
+    frames = stream_frames(np, 32, seed)
+    for f in frames[:28]:
+        engine.push(f)
+    for part, (a, b) in (("window", frames[28:30]), ("scoring_window", frames[30:32])):
+        engine.push(a)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = engine.push(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summarize(torch, prof, wall, {
+            "card": card, "streaming": part, "frames": out["frames"],
+            "scored": out["triplets"] is not None, "tubes": len(engine._tube_cls),
+            "ring_shape": list(engine._ring.hist.shape)})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -487,6 +533,8 @@ def main(argv=None) -> int:
     ap.add_argument("--swin", action="store_true",
                     help="profile one Swin-T window and one train step per assigner "
                          "instead")
+    ap.add_argument("--streaming", action="store_true",
+                    help="profile one streaming window and one scoring window instead")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -521,6 +569,8 @@ def main(argv=None) -> int:
         return profile_reference(torch, np, args.seed, card.splitlines()[0])
     if args.swin:
         return profile_swin(torch, np, args.seed, card.splitlines()[0])
+    if args.streaming:
+        return profile_streaming(torch, np, args.seed, card.splitlines()[0])
     build.build()
     cfg = stage2_config()
     seg = SegmenterInference(cfg, random_state_dict(cfg, args.seed),

@@ -500,3 +500,58 @@ def test_tracker_device_work_runs_in_ieee_float32(monkeypatch):
         assert flags() == (True, True)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+NEW_SERVING_TOOLS = ("prepare_rel_set", "rel_train", "rel_test", "rel_test_full",
+                     "end2end_inference")
+
+
+def test_relation_and_end2end_clis_load_no_jax():
+    """A fresh interpreter imports the streaming engine and runs each stage
+    3-5 and end-to-end CLI's ``--help`` with no jax, flax or openpvsg_tpu
+    module loaded; the AST scan covers their files."""
+    code = (
+        "import importlib, sys\n"
+        "import openpvsg_torch.infer.streaming\n"
+        f"for name in {NEW_SERVING_TOOLS!r}:\n"
+        "    tool = importlib.import_module('openpvsg_torch.tools.' + name)\n"
+        "    try:\n"
+        "        tool.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (name, e.code)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.count("usage:") == len(NEW_SERVING_TOOLS)
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for name in NEW_SERVING_TOOLS:
+        assert os.path.join("openpvsg_torch", "tools", f"{name}.py") in scanned
+    assert os.path.join("openpvsg_torch", "infer", "streaming.py") in scanned
+
+
+def test_streaming_and_end2end_default_to_the_gpu(tmp_path):
+    """Without a GPU, the streaming engine (whose device is its
+    segmenter's) and end2end_inference without --device raise instead of
+    running on the CPU; with the CPU asked for, the engine's ring and
+    relation model live there."""
+    from openpvsg_torch.config import RelationHeadConfig
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.streaming import StreamingPVSG
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.tools import end2end_inference
+    from openpvsg_torch.weights import random_state_dict
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = _tiny_cfg()
+    state = random_state_dict(cfg, 0)
+    rel = RelationModel.from_config(RelationHeadConfig(encoder_heads=2, encoder_ffn=64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingPVSG(SegmenterInference(cfg, state), rel)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        end2end_inference.main(["--out-dir", str(tmp_path)])
+    engine = StreamingPVSG(SegmenterInference(cfg, state, device="cpu"), rel)
+    assert engine._ring.hist.device.type == "cpu"
+    assert {p.device.type for p in rel.parameters()} == {"cpu"}
