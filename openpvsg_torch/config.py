@@ -4,14 +4,14 @@
 and the ``config.json`` and ``--set key=value`` plumbing of the CLIs.
 
 The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults),
-so a configuration reads the same in both packages. The fields of modules
-not ported yet (int8 weights, instance postprocessing, the fused-FPN switch,
-the embedding decay switch) are left out: ``load_config_file`` reads a
-``config.json`` of the JAX package when each of them holds its JAX default
-and raises naming the first that does not. ``check_training_config``
-accepts every training value of ``Mask2FormerConfig`` that the JAX package
-accepts, raises the JAX package's errors for the invalid ones, and refuses
-a compute dtype other than float32, naming ``ROADMAP.md`` A9.
+so a configuration reads the same in both packages. Two fields are left
+out: int8 weights, whose module is not ported, and the pixel decoder's
+``strides``, which neither package reads. ``load_config_file`` reads a
+``config.json`` of the JAX package when each holds its JAX default and
+raises naming the first that does not. ``check_training_config`` accepts
+every training value of ``Mask2FormerConfig`` that the JAX package accepts
+(the compute dtype float32 or bfloat16 among them) and raises the JAX
+package's errors for the invalid ones.
 """
 from __future__ import annotations
 
@@ -51,6 +51,10 @@ class PixelDecoderConfig:
     num_points: int = 4  # MSDA sampling points per head and level
     ffn_channels: int = 1024
     num_groups: int = 32  # GroupNorm groups
+    # the JAX package's switch of the fused stride-4 kernel; it selects
+    # nothing in the port, which always launches kernel B1 when serving on
+    # the card and runs the plain chain on the CPU and in training
+    fused_fpn: bool = False
 
 
 @dataclass(frozen=True)
@@ -99,6 +103,11 @@ class Mask2FormerConfig:
     # fusion thresholds (reference test cfg)
     object_mask_thr: float = 0.8
     iou_thr: float = 0.8
+    # instance_postprocess's test cfg; as in the JAX package no code reads
+    # them (``models/fusion.py:instance_postprocess`` takes its top-k count
+    # as an argument)
+    max_per_image: int = 100
+    filter_low_score: bool = True
     # head variants: split thing/stuff queries (the last num_stuff_classes
     # queries take only stuff targets), sigmoid focal classification loss,
     # per-pixel semantic aux head (a 1x1 conv on the mask features, trained
@@ -125,6 +134,9 @@ class TrainConfig:
     lr: float = 1e-4
     weight_decay: float = 0.05
     backbone_lr_mult: float = 0.1
+    # as in the JAX package, the embeddings never decay whatever its value
+    # (``train/segmenter.py:decays``)
+    embed_no_decay: bool = True
     grad_clip: float = 0.01
     epochs: int = 8
     lr_step_epochs: Tuple[int, ...] = (7,)
@@ -300,11 +312,7 @@ PRESETS = {
 # item that ports its module.
 JAX_ONLY_FIELDS: Dict[str, Tuple[Any, str]] = {
     "model.pixel_decoder.strides": ([4, 8, 16, 32], "A12"),
-    "model.pixel_decoder.fused_fpn": (False, "A4"),
     "model.int8_weights": (False, "A12"),
-    "model.max_per_image": (100, "A6"),
-    "model.filter_low_score": (True, "A6"),
-    "train.embed_no_decay": (True, "A9"),
 }
 
 
@@ -469,8 +477,9 @@ def check_training_config(cfg: Mask2FormerConfig) -> None:
     ``loss_sampling`` is 'dense' or 'points'; the assigner, layout and
     dtype checks are ``check_assigner_capacity``'s (LAPJV's capacity is
     checked against each batch, as the JAX trainer does); the backbone is
-    'resnet' or 'swin'. A compute dtype other than float32
-    (``backbone.dtype``) is not ported: ROADMAP.md A9."""
+    'resnet' or 'swin'; its compute dtype ``backbone.dtype`` 'float32' or
+    'bfloat16', in the words of the ``mask_logits_dtype`` check. (The JAX
+    trainer would run any other value in float32.)"""
     if cfg.loss_sampling not in ("dense", "points"):
         raise ValueError(f"model.loss_sampling={cfg.loss_sampling!r}: "
                          "'dense' or 'points'")
@@ -478,7 +487,7 @@ def check_training_config(cfg: Mask2FormerConfig) -> None:
         raise ValueError(f"model.backbone.kind={cfg.backbone.kind!r}: "
                          "'resnet' or 'swin'")
     check_assigner_capacity(cfg, 0)
-    if cfg.backbone.dtype != "float32":
+    if cfg.backbone.dtype not in ("float32", "bfloat16"):
         raise ValueError(
-            f"model.backbone.dtype={cfg.backbone.dtype!r} is not ported to "
-            "openpvsg_torch training (only 'float32'); ROADMAP.md A9 ports it")
+            f"model.backbone.dtype must be 'float32' or 'bfloat16', "
+            f"got {cfg.backbone.dtype!r}")

@@ -18,7 +18,6 @@
 from __future__ import annotations
 
 import os
-import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -35,6 +34,7 @@ from openpvsg_torch.eval.relation_matching import (
 from openpvsg_torch.infer.segmenter import SegmenterInference
 from openpvsg_torch.tracker.tracker import MaskAssociationTracker
 from openpvsg_torch.tracker.tubes import SimpleTube
+from openpvsg_torch.utils.profiling import Timer
 
 
 def _frame(f: Union[str, np.ndarray]) -> np.ndarray:
@@ -113,6 +113,7 @@ def run_query_tube_ips(
         # raw uint8 batch: normalization and padding run in the forward
         return raw, segmenter.infer_frames_ips_async(np.stack(raw))
 
+    timer = Timer()
     offsets = list(range(0, num_frames, batch_size))
     pending: deque = deque()
     next_i = 0
@@ -121,7 +122,7 @@ def run_query_tube_ips(
             pending.append(dispatch(offsets[next_i]))
             next_i += 1
         # timed after the refill: fps is frames consumed per interval
-        t0 = time.perf_counter()
+        timer.tic()
         raw, handle = pending.popleft()
         for img, out in zip(raw, segmenter.package_ips(handle)):
             frame_id += 1
@@ -139,8 +140,9 @@ def run_query_tube_ips(
             results.append((frame_id, rles, tids))
             if save_images:
                 save_tracking_overlay(save_root, frame_id, img, vis_masks, tids)
+        timer.toc()
         if log_fn and frame_id % 20 < batch_size:
-            fps = len(raw) / max(time.perf_counter() - t0, 1e-5)
+            fps = len(raw) / max(timer.diff, 1e-5)
             log_fn(f"frame {frame_id}/{num_frames} ({fps:.2f} fps)")
 
     tubes = tracker.finalize(num_frames)
@@ -158,6 +160,7 @@ def run_query_tube_vps(
     chain_windows: bool = False,
     pipeline_depth: int = 2,
     save_images: bool = False,
+    windows_per_batch: int = 1,
 ) -> int:
     """VPS stage 2 for one video; returns the number of tubes.
 
@@ -166,19 +169,25 @@ def run_query_tube_vps(
 
     chain_windows carries the last frame's aligned query embeddings across
     windows (off by default, as in the reference). save_images writes the
-    ``qualititive/`` overlays. Each window runs as one
-    forward; pipeline_depth windows are enqueued on the device before the
-    oldest is fetched and stitched. Results are identical at any depth."""
+    ``qualititive/`` overlays. ``windows_per_batch`` windows run as one
+    forward (1 by default: the JAX package's default without a mesh, and
+    the port has none); pipeline_depth such batches are enqueued on the
+    device before the oldest is fetched and stitched. Each frame's forward
+    and fusion are its own and the MinVIS stitch runs per window on the
+    host, so results are identical at any batch and depth, chained or not
+    (``openpvsg_tpu/infer/stages.py:171-207``)."""
     total_frames = len(frames)
     results = []
     object_list: List[int] = []
     feat_tubes: Dict[int, Dict[int, Dict]] = {}
 
+    per_batch = window * windows_per_batch
+
     def dispatch(lo: int):
-        raw = np.stack([_frame(f) for f in frames[lo:lo + window]])
+        raw = np.stack([_frame(f) for f in frames[lo:lo + per_batch]])
         return raw, segmenter.infer_windows_vps_async(raw)
 
-    offsets = list(range(0, total_frames, window))
+    offsets = list(range(0, total_frames, per_batch))
     pending: deque = deque()
     next_i = 0
     frame_id = 0

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from openpvsg_torch.config import PixelDecoderConfig
+from openpvsg_torch.models.layers import Dense, LayerNorm
 from openpvsg_torch.models.position_encoding import sine_pos_encoding
 from openpvsg_torch.ops.resize import resize_bilinear
 
@@ -34,10 +35,10 @@ class AxisMHA(nn.Module):
         self.num_heads = num_heads
         self.dim = dim
         self.axis = axis
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.q_proj = Dense(dim, dim)
+        self.k_proj = Dense(dim, dim)
+        self.v_proj = Dense(dim, dim)
+        self.out_proj = Dense(dim, dim)
 
     def forward(self, qk: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         nh = self.num_heads
@@ -61,12 +62,12 @@ class AxialAttentionBlock(nn.Module):
     def __init__(self, num_heads: int, dim: int, ffn_dim: int):
         super().__init__()
         self.row_attn = AxisMHA(num_heads, dim, axis=2)
-        self.norm_row = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm_row = LayerNorm(dim, eps=LN_EPS)
         self.col_attn = AxisMHA(num_heads, dim, axis=1)
-        self.norm_col = nn.LayerNorm(dim, eps=LN_EPS)
-        self.ffn_fc1 = nn.Linear(dim, ffn_dim)
-        self.ffn_fc2 = nn.Linear(ffn_dim, dim)
-        self.norm_ffn = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm_col = LayerNorm(dim, eps=LN_EPS)
+        self.ffn_fc1 = Dense(dim, ffn_dim)
+        self.ffn_fc2 = Dense(ffn_dim, dim)
+        self.norm_ffn = LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C); pos: (1, H, W, C)."""
@@ -90,7 +91,7 @@ class AxialPixelEncoder(nn.Module):
             self.add_module(f"layer_{layer}", AxialAttentionBlock(
                 cfg.num_heads, C, cfg.ffn_channels))
             for i in range(1, n):
-                self.add_module(f"mix_{layer}_{i}", nn.Linear(C, C))
+                self.add_module(f"mix_{layer}_{i}", Dense(C, C))
 
     def forward(self, levels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         C = self.level_embed.shape[1]

@@ -11,7 +11,8 @@ The owner and area step runs as kernel B2 (``kernels/fusion.py``) on the
 stride-4 logits, so the upsampled (Q, H, W) masks are never materialized on
 the card; the rest (valid, cumulative instance ids, paint) is torch.
 ``query_feats_by_segment`` attaches the kept queries' features to their
-segments on the host.
+segments on the host. ``instance_postprocess`` is the reference's top-k
+instance extraction (its IPS test surface).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from openpvsg_torch import INSTANCE_OFFSET
 from openpvsg_torch.kernels.fusion import fusion_maps
+from openpvsg_torch.ops.sampling import top_k_indices
 
 
 def panoptic_fusion(cls_logits: torch.Tensor, mask_low: torch.Tensor,
@@ -87,3 +89,27 @@ def query_feats_by_segment(fusion: Dict[str, np.ndarray],
     for q in np.flatnonzero(keep):
         out.setdefault(int(seg_ids[q]), []).append(np.asarray(query_feats[q]))
     return {k: np.mean(v, axis=0) for k, v in out.items()}
+
+
+def instance_postprocess(cls_logits, mask_logits, num_things_classes: int,
+                         max_per_image: int = 100
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Top-k instance extraction of one frame (``instance_postprocess``,
+    ``openpvsg_tpu/models/fusion.py:121``; reference:
+    mask2former_fusion_head.py:192-242): cls_logits (Q, K+1) and mask
+    logits (Q, H, W), tensors or arrays -> (labels, scores, masks) as numpy
+    of the ``max_per_image`` best (query, class) pairs that are things. The
+    class softmax drops the void column; the top-k over the Q x K scores
+    takes ``lax.top_k``'s order, the lower flat index first among ties
+    (``top_k_indices``); a mask is ``sigmoid >= 0.5``."""
+    cls_logits, mask_logits = (t if torch.is_tensor(t) else torch.from_numpy(np.asarray(t))
+                               for t in (cls_logits, mask_logits))
+    num_classes = cls_logits.shape[-1] - 1
+    scores = torch.softmax(cls_logits.float(), dim=-1)[:, :-1].reshape(-1)
+    idx = top_k_indices(scores, max_per_image)
+    labels = idx % num_classes
+    is_thing = labels < num_things_classes
+    keep = idx[is_thing]
+    masks = torch.sigmoid(mask_logits.float()[keep // num_classes]) >= 0.5
+    return (labels[is_thing].cpu().numpy(), scores[keep].cpu().numpy(),
+            masks.cpu().numpy())

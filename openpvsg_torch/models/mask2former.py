@@ -20,6 +20,14 @@ A query whose mask blocks every token attends everywhere
 (``openpvsg_tpu/models/mask2former.py:129-135``). The mask logits
 accumulate in float32 and are stored in ``mask_logits_dtype`` (bfloat16
 halves the training step's largest tensor), in both forwards.
+
+Compute dtype: the serving model is cast whole (``SegmenterInference``'s
+``dtype``). The bfloat16 trainer keeps float32 parameters and sets the
+layers' ``compute_dtype`` (``models/layers.py``), as flax's
+``Mask2Former(dtype=bfloat16)`` computes: the activations are bfloat16, the
+norms take float32 statistics, the attention logits and softmaxes, the
+mask logits and the MSDA locations are float32, and the query
+embeddings and positional encodings are cast to bfloat16.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from openpvsg_torch.config import Mask2FormerConfig
+from openpvsg_torch.models.layers import Conv, Dense, LayerNorm
 from openpvsg_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from openpvsg_torch.models.position_encoding import (sine_pos_encoding,
                                                      sine_pos_encoding_3d)
@@ -44,9 +53,9 @@ LN_EPS = 1e-6
 class MaskEmbedMLP(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.fc0 = nn.Linear(dim, dim)
-        self.fc1 = nn.Linear(dim, dim)
-        self.fc2 = nn.Linear(dim, dim)
+        self.fc0 = Dense(dim, dim)
+        self.fc1 = Dense(dim, dim)
+        self.fc2 = Dense(dim, dim)
 
     def forward(self, x):
         return self.fc2(F.relu(self.fc1(F.relu(self.fc0(x)))))
@@ -63,8 +72,8 @@ class Mask2FormerHead(nn.Module):
         self.level_embed = nn.Parameter(torch.zeros(self.num_levels, C))
         self.logits_dtype = (torch.bfloat16 if cfg.mask_logits_dtype == "bfloat16"
                              else torch.float32)
-        self.decoder_norm = nn.LayerNorm(C, eps=LN_EPS)
-        self.cls_embed = nn.Linear(C, cfg.num_classes + 1)
+        self.decoder_norm = LayerNorm(C, eps=LN_EPS)
+        self.cls_embed = Dense(C, cfg.num_classes + 1)
         self.mask_embed = MaskEmbedMLP(C)
         for layer in range(self.num_layers):
             self.add_module(f"layer_{layer}", MaskedDecoderLayer(cfg.decoder))
@@ -103,8 +112,8 @@ class Mask2FormerHead(nn.Module):
                 .float())
 
         Q = self.query_feat.shape[0]
-        query = self.query_feat[None].expand(B, Q, C)
-        query_pos = self.query_embed[None].expand(B, Q, C)
+        query = self.query_feat[None].expand(B, Q, C).to(dtype)
+        query_pos = self.query_embed[None].expand(B, Q, C).to(dtype)
 
         def attn_mask_for(membed, lvl):
             logits = torch.einsum("bqc,bsc->bqs", membed.float(),
@@ -157,8 +166,8 @@ class Mask2Former(nn.Module):
                                                       train=train)
         self.head = Mask2FormerHead(cfg)
         if cfg.with_sem_seg:
-            self.sem_seg_head = nn.Conv2d(cfg.pixel_decoder.out_channels,
-                                          cfg.num_classes + 1, 1)
+            self.sem_seg_head = Conv(cfg.pixel_decoder.out_channels,
+                                     cfg.num_classes + 1, 1)
 
     def forward(self, images: torch.Tensor, return_sem_seg: bool = False):
         """Inference: images (N, H, W, 3) normalized frames, each run with
@@ -189,7 +198,8 @@ class Mask2Former(nn.Module):
             return out
         sem = None
         if self.cfg.with_sem_seg:
-            w = self.sem_seg_head.weight[:, :, 0, 0]
-            sem = F.linear(mask_features, w, self.sem_seg_head.bias)
+            head = self.sem_seg_head
+            sem = F.linear(*head.cast(mask_features, head.weight[:, :, 0, 0],
+                                      head.bias))
             sem = unflatten(sem) if self.train_mode else sem
         return (*out, sem)

@@ -13,8 +13,15 @@ unfused chain ``fpn_stride4_plain`` for CPU tensors. Built with
 ``train=True`` the decoder runs ``fpn_stride4_plain`` on every device, as
 the JAX package does with ``fused_fpn=False``
 (``openpvsg_tpu/models/pixel_decoder.py:245-258``): the kernels have no
-backward. Its weights stay in the ConvGN submodules, so the parameter tree
-is the flax one. Tensors are channels last (B, H, W, C).
+backward; with a compute dtype (the bfloat16 trainer) it runs the ConvGN
+modules themselves, whose layers take that dtype. Its weights stay in the
+ConvGN submodules, so the parameter tree is the flax one. Tensors are
+channels last (B, H, W, C).
+
+``model.pixel_decoder.fused_fpn`` selects nothing in the port: on the card
+the serving forward always launches B1, on the CPU it always runs the
+plain chain, and training never launches it. The field is read from
+config files of either value, so they load.
 """
 from __future__ import annotations
 
@@ -29,8 +36,10 @@ import torch.nn.functional as F
 from openpvsg_torch.config import PixelDecoderConfig
 from openpvsg_torch.kernels import fpn
 from openpvsg_torch.models.axial_encoder import AxialPixelEncoder
+from openpvsg_torch.models.layers import Conv, Dense, GroupNorm, LayerNorm
 from openpvsg_torch.models.position_encoding import sine_pos_encoding
 from openpvsg_torch.models.transformer_decoder import DecoderFFN
+from openpvsg_torch.ops.resize import resize_bilinear
 from openpvsg_torch.ops.sampling import ms_deform_attn
 
 GN_EPS = 1e-6
@@ -62,10 +71,10 @@ class MSDeformAttention(nn.Module):
                  num_levels: int = 3, num_points: int = 4):
         super().__init__()
         self.num_heads, self.num_levels, self.num_points = num_heads, num_levels, num_points
-        self.value_proj = nn.Linear(embed_dim, embed_dim)
-        self.sampling_offsets = nn.Linear(embed_dim, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(embed_dim, num_heads * num_levels * num_points)
-        self.output_proj = nn.Linear(embed_dim, embed_dim)
+        self.value_proj = Dense(embed_dim, embed_dim)
+        self.sampling_offsets = Dense(embed_dim, num_heads * num_levels * num_points * 2)
+        self.attention_weights = Dense(embed_dim, num_heads * num_levels * num_points)
+        self.output_proj = Dense(embed_dim, embed_dim)
 
     def forward(self, query: torch.Tensor, value: torch.Tensor,
                 reference_points: torch.Tensor,
@@ -94,8 +103,8 @@ class ConvGN(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1,
                  num_groups: int = 32, act: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
-        self.gn = nn.GroupNorm(num_groups, out_ch, eps=GN_EPS)
+        self.conv = Conv(in_ch, out_ch, kernel, padding=kernel // 2)
+        self.gn = GroupNorm(num_groups, out_ch, eps=GN_EPS)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,12 +142,12 @@ class MSDeformAttnPixelDecoder(nn.Module):
             for i in range(cfg.encoder_layers):
                 self.add_module(f"encoder_layer_{i}_attn", MSDeformAttention(
                     C, cfg.num_heads, cfg.num_levels, cfg.num_points))
-                self.add_module(f"encoder_layer_{i}_norm1", nn.LayerNorm(C, eps=LN_EPS))
+                self.add_module(f"encoder_layer_{i}_norm1", LayerNorm(C, eps=LN_EPS))
                 self.add_module(f"encoder_layer_{i}_ffn", DecoderFFN(cfg.ffn_channels, C))
-                self.add_module(f"encoder_layer_{i}_norm2", nn.LayerNorm(C, eps=LN_EPS))
+                self.add_module(f"encoder_layer_{i}_norm2", LayerNorm(C, eps=LN_EPS))
         self.lateral_conv_0 = ConvGN(cfg.in_channels[0], C, 1, cfg.num_groups)
         self.output_conv_0 = ConvGN(C, C, 3, cfg.num_groups, act=True)
-        self.mask_feature = nn.Conv2d(C, cfg.out_channels, 1)
+        self.mask_feature = Conv(C, cfg.out_channels, 1)
 
     def fpn_params(self):
         """The stride-4 chain's weights in the layout of
@@ -205,6 +214,12 @@ class MSDeformAttnPixelDecoder(nn.Module):
         else:
             outs = self._msda_encoder(projs)
         # outs = [stride32, stride16, stride8]
+        if self.train_mode and self.mask_feature.compute_dtype is not None:
+            # the module chain, whose convs and norms take the compute dtype
+            lat = self.lateral_conv_0(feats[0])
+            x = self.output_conv_0(lat + resize_bilinear(outs[-1], lat.shape[1:3]))
+            mask_feature = self.mask_feature(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            return mask_feature, outs[:cfg.num_outs]
         chain = fpn.fpn_stride4_plain if self.train_mode else fpn.fpn_stride4
         mask_feature = chain(feats[0], outs[-1], self.fpn_params(),
                              num_groups=cfg.num_groups, eps=GN_EPS)

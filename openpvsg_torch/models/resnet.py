@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from openpvsg_torch.models.layers import Conv
+
 # 26 = one bottleneck per stage (test/debug scale)
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 26: (1, 1, 1, 1), 34: (3, 4, 6, 3),
                 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
@@ -46,7 +48,14 @@ class BatchNorm(nn.Module):
     variance over (N, H, W) and moves the running statistics toward them.
     The update is the port's own: torch's would store the unbiased
     variance (n / (n - 1) times flax's). The biased variance comes back
-    from the normalization's own statistics, so x is reduced once."""
+    from the normalization's own statistics, so x is reduced once.
+
+    With a ``compute_dtype`` (``models/layers.py``) it normalizes the
+    float32 input with float32 statistics, scale and bias and returns the
+    compute dtype, as flax's ``BatchNorm(dtype=...)`` does; the running
+    statistics stay float32."""
+
+    compute_dtype = None
 
     def __init__(self, channels: int, batch_stats: bool = False):
         super().__init__()
@@ -57,6 +66,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        if self.compute_dtype is not None:
+            return self._normalize(x.float()).to(self.compute_dtype)
+        return self._normalize(x)
+
+    def _normalize(self, x):
         if not self.batch_stats:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
@@ -90,7 +104,7 @@ class Norm(nn.Module):
 
 
 def _conv(cin, cout, k, stride=1, bias=False):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+    return Conv(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
 
 class Bottleneck(nn.Module):

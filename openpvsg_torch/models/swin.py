@@ -38,6 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from openpvsg_torch.models.layers import Conv, Dense, LayerNorm
+
 LN_EPS = 1e-6
 MASK_VALUE = -100.0
 
@@ -79,10 +81,10 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = Dense(dim, 3 * dim)
         self.rel_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Dense(dim, dim)
         self.register_buffer(
             "rel_index",
             torch.from_numpy(_rel_pos_index(window).reshape(-1).astype(np.int64)),
@@ -115,11 +117,11 @@ class SwinBlock(nn.Module):
                  mlp_ratio: float = 4.0):
         super().__init__()
         self.window, self.shift = window, shift
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, num_heads, window)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
-        self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
+        self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio))
+        self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim)
         # shifted-window masks by (H, W, device), built once per grid
         self._masks: Dict[tuple, torch.Tensor] = {}
 
@@ -155,8 +157,8 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=LN_EPS)
+        self.reduction = Dense(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) with H, W even -> (B, H/2, W/2, 2C); each 2x2 patch
@@ -188,8 +190,8 @@ class SwinTransformer(nn.Module):
         self.window = window
         self.depths = depths
         self.out_indices = tuple(out_indices)
-        self.patch_embed = nn.Conv2d(3, embed_dim, 4, stride=4)
-        self.patch_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.patch_embed = Conv(3, embed_dim, 4, stride=4)
+        self.patch_norm = LayerNorm(embed_dim, eps=LN_EPS)
         dim = embed_dim
         for stage, depth in enumerate(depths):
             for blk in range(depth):
@@ -197,7 +199,7 @@ class SwinTransformer(nn.Module):
                     dim, heads[stage], window,
                     shift=0 if blk % 2 == 0 else window // 2))
             if stage in self.out_indices:
-                self.add_module(f"out_norm{stage}", nn.LayerNorm(dim, eps=LN_EPS))
+                self.add_module(f"out_norm{stage}", LayerNorm(dim, eps=LN_EPS))
             if stage < len(depths) - 1:
                 self.add_module(f"downsample{stage}", PatchMerging(dim))
                 dim *= 2

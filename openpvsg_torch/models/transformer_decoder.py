@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from openpvsg_torch.config import TransformerDecoderConfig
+from openpvsg_torch.models.layers import Dense, LayerNorm
 
 LN_EPS = 1e-6
 
@@ -28,10 +29,10 @@ class MultiheadAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dim = dim
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.q_proj = Dense(dim, dim)
+        self.k_proj = Dense(dim, dim)
+        self.v_proj = Dense(dim, dim)
+        self.out_proj = Dense(dim, dim)
 
     def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
         H = self.num_heads
@@ -54,8 +55,8 @@ class MultiheadAttention(nn.Module):
 class DecoderFFN(nn.Module):
     def __init__(self, hidden: int, dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Dense(dim, hidden)
+        self.fc2 = Dense(hidden, dim)
 
     def forward(self, x):
         return x + self.fc2(F.relu(self.fc1(x)))
@@ -66,11 +67,11 @@ class MaskedDecoderLayer(nn.Module):
         super().__init__()
         C = cfg.feat_channels
         self.cross_attn = MultiheadAttention(cfg.num_heads, C)
-        self.norm1 = nn.LayerNorm(C, eps=LN_EPS)
+        self.norm1 = LayerNorm(C, eps=LN_EPS)
         self.self_attn = MultiheadAttention(cfg.num_heads, C)
-        self.norm2 = nn.LayerNorm(C, eps=LN_EPS)
+        self.norm2 = LayerNorm(C, eps=LN_EPS)
         self.ffn = DecoderFFN(cfg.ffn_channels, C)
-        self.norm3 = nn.LayerNorm(C, eps=LN_EPS)
+        self.norm3 = LayerNorm(C, eps=LN_EPS)
 
     def forward(self, query, query_pos, feat, feat_pos, attn_mask):
         """query: (B, Q, C); feat: (B, S, C); attn_mask: (B, Q, S) bool

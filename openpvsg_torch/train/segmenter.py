@@ -21,6 +21,16 @@ head's loss when a batch carries ``gt_semantic`` (``with_sem_seg``; as in
 the JAX trainer, no data path of either package fills it).
 ``SegmenterTrainer.loss`` computes it from the model's predictions.
 
+Compute dtype (``model.backbone.dtype``): 'float32', or 'bfloat16' with
+float32 parameters, as the JAX trainer builds its model at
+``compute_dtype`` (``openpvsg_tpu/train/segmenter.py:208-214``). The
+trainer keeps its float32 ``nn.Parameter``s and sets the model layers'
+``compute_dtype`` (``models/layers.py``): each Dense and Conv computes on
+bfloat16 casts of its input and weights, each norm takes float32
+statistics, and autograd returns float32 gradients through the casts. The
+optimizer, the clip and the checkpoints are the float32 path's; the loss
+sums accumulate in float32.
+
 Groups and the decay mask are the JAX package's rules applied to the flax
 path of each parameter (``weights.flax_path``). torch's AdamW with those
 groups is optax's chain: its decoupled decay p *= 1 - lr * wd before the
@@ -41,6 +51,7 @@ from openpvsg_torch.config import (Mask2FormerConfig, TrainConfig,
                                    check_assigner_capacity,
                                    check_training_config, resolve_assigner)
 from openpvsg_torch.infer.segmenter import resolve_device
+from openpvsg_torch.models.layers import set_compute_dtype
 from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.ops.sampling import uniform_draw
 from openpvsg_torch.train.assign import (assignment_costs, lap_assign,
@@ -108,6 +119,31 @@ def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int):
     return schedule
 
 
+def cosine_warmup_schedule(max_lr: float, min_lr: float, warmup_epochs: int,
+                           num_epochs: int, steps_per_epoch: int):
+    """count -> lr in float32: optax's ``warmup_cosine_decay_schedule``
+    from ``min_lr`` up to ``max_lr`` over ``warmup_epochs`` and a cosine
+    back to ``min_lr`` at ``num_epochs`` (``cosine_warmup_schedule``,
+    ``openpvsg_tpu/train/segmenter.py:84``; reference:
+    utils/lr_scheduler.py:6-34). Like the JAX package's, no trainer uses
+    it."""
+    f32 = np.float32
+    warmup = max(warmup_epochs * steps_per_epoch, 1)
+    decay = max(num_epochs * steps_per_epoch, 2) - warmup
+    alpha = 0.0 if max_lr == 0.0 else min_lr / max_lr
+
+    def schedule(count: int) -> np.float32:
+        if count < warmup:  # optax linear_schedule(min_lr -> max_lr)
+            frac = f32(1) - f32(min(max(count, 0), warmup)) / f32(warmup)
+            return f32(min_lr - max_lr) * frac + f32(max_lr)
+        # cosine_decay_schedule(max_lr, decay, alpha) at count - warmup
+        c = min(f32(count - warmup), f32(decay))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay)))
+        return f32(max_lr) * (f32(1 - alpha) * cosine + f32(alpha))
+
+    return schedule
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
                          ) -> torch.Tensor:
@@ -123,17 +159,22 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
 
 @contextlib.contextmanager
 def ieee_float32():
-    """TF32 off for cuBLAS and cuDNN inside the block, restored after: the
-    trainer computes in float32 (``backbone.dtype``), which torch's default
-    for cuDNN convolutions (TF32) would not be."""
+    """TF32 off for cuBLAS and cuDNN inside the block, and cuBLAS's
+    reduced-precision bfloat16 reductions too, restored after: the
+    trainer's float32 products are IEEE float32, which torch's default for
+    cuDNN convolutions (TF32) would not be, and its bfloat16 products
+    accumulate in float32, as XLA's do."""
     matmul = torch.backends.cuda.matmul
     cudnn = torch.backends.cudnn
-    saved = matmul.allow_tf32, cudnn.allow_tf32
+    saved = (matmul.allow_tf32, cudnn.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     matmul.allow_tf32 = cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
+        (matmul.allow_tf32, cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def pad_targets(samples, max_instances: int, mask_stride: int = 4):
@@ -172,9 +213,11 @@ class SegmenterTrainer:
                 head's target (its loss is added only when it is given)
 
     ``device=None`` means the GPU and raises without one; pass
-    ``device="cpu"`` to train on the CPU. The forward and backward run in
-    IEEE float32 with TF32 off, whatever the global settings, and leave
-    those settings as they found them. ``state_dict`` (the port's float32
+    ``device="cpu"`` to train on the CPU. The forward and backward compute
+    in ``model.backbone.dtype`` (float32, or bfloat16 over float32
+    parameters), with IEEE float32 (TF32 off) for the float32 products and
+    float32 accumulation for the bfloat16 ones, whatever the global
+    settings, and leave those settings as they found them. ``state_dict`` (the port's float32
     state dict) defaults to ``random_state_dict(cfg, seed)``. In points mode
     every uniform draw (matching and loss points) comes from ``draw``, by
     default ``generator``, a ``torch.Generator`` on the trainer's device
@@ -201,6 +244,8 @@ class SegmenterTrainer:
         model = Mask2Former(cfg, train=True)
         model.load_state_dict(random_state_dict(cfg, seed) if state_dict is None
                               else state_dict, strict=True)
+        if cfg.backbone.dtype == "bfloat16":
+            set_compute_dtype(model, torch.bfloat16)
         self.model = model.to(self.device)
         self.params = list(self.model.parameters())
         self.optimizer = torch.optim.AdamW(
@@ -236,8 +281,8 @@ class SegmenterTrainer:
         """Forward, assignment, loss and backward: fills ``.grad`` of every
         parameter (zeros where the loss does not reach one, as optax sees
         it) and returns (loss, logs) as device tensors. Updates the BN
-        running statistics; does not step the optimizer. Runs in IEEE
-        float32 (``ieee_float32``) whatever the caller's TF32 settings."""
+        running statistics; does not step the optimizer. Runs under
+        ``ieee_float32`` whatever the caller's settings."""
         with ieee_float32():
             return self._loss_and_grads(batch)
 

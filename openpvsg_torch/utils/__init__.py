@@ -1,1 +1,1 @@
-"""Host utilities: the JSONL metrics stream."""
+"""Host utilities: the JSONL metrics stream, timers and tracing."""

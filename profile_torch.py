@@ -25,6 +25,8 @@ With ``--train`` it instead profiles one stage-1 train step of
 TF32 off, the preset's ``samples_per_gpu`` clips of 2 384x480 frames) after
 two warm-up steps: the step's wall time, device busy time and idle share,
 the host LAP's time, the device time by kernel family and the top kernels.
+``--dtype bfloat16`` profiles the bfloat16 compute step instead (float32
+parameters, ``model.backbone.dtype``).
 
 With ``--ips`` it instead profiles IPS stage 2 as ``chip_smoke.py``'s
 ``stage2_ips`` phase runs it (``mask2former_ips`` at full width, bf16
@@ -236,7 +238,7 @@ def summarize(torch, prof, wall, head):
         for name, (n, t) in top]}), flush=True)
 
 
-def profile_train(torch, np, seed, card):
+def profile_train(torch, np, seed, card, dtype="float32"):
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import train_batch
@@ -245,6 +247,7 @@ def profile_train(torch, np, seed, card):
 
     pvsg = mask2former_vps()
     cfg, clips = pvsg.model, pvsg.train.samples_per_gpu
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
     batch = train_batch(np, clips, cfg.num_frames, (360, 480), (384, 480),
                         20, cfg.num_classes, seed)
     trainer = SegmenterTrainer(cfg, pvsg.train, steps_per_epoch=1000, seed=seed)
@@ -257,7 +260,7 @@ def profile_train(torch, np, seed, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     summarize(torch, prof, wall, {
-        "card": card, "train_step": "mask2former_vps", "dtype": "float32",
+        "card": card, "train_step": "mask2former_vps", "dtype": dtype,
         "clips": clips, "frames": clips * cfg.num_frames,
         "host_lap_ms": trainer.last_timings["host_lap_s"] * 1e3,
         "cost_wait_ms": trainer.last_timings["cost_wait_s"] * 1e3})
@@ -524,6 +527,8 @@ def main(argv=None) -> int:
                     help="print the fusion kernel's static SASS counts")
     ap.add_argument("--train", action="store_true",
                     help="profile one stage-1 train step instead")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the train step's compute dtype with --train")
     ap.add_argument("--relation", action="store_true",
                     help="profile one relation train step and one eval video instead")
     ap.add_argument("--ips", action="store_true",
@@ -560,7 +565,7 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card.splitlines()[0], **sass_counts(build)}), flush=True)
         return 0
     if args.train:
-        return profile_train(torch, np, args.seed, card.splitlines()[0])
+        return profile_train(torch, np, args.seed, card.splitlines()[0], args.dtype)
     if args.relation:
         return profile_relation(torch, np, args.seed, card.splitlines()[0])
     if args.ips:

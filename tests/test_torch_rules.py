@@ -320,6 +320,13 @@ def test_ast_scan_covers_the_sampling_ops():
     assert os.path.join("openpvsg_torch", "ops", "sampling.py") in scanned
 
 
+def test_ast_scan_covers_the_layers_metric_and_profiling():
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for rel in (("models", "layers.py"), ("eval", "metric.py"),
+                ("utils", "profiling.py")):
+        assert os.path.join("openpvsg_torch", *rel) in scanned
+
+
 def test_reference_model_clis_load_no_jax(tmp_path):
     """The train CLI for one epoch and the test CLI with the reference's
     model and objective (``encoder=msda``, ``loss_sampling=points``,

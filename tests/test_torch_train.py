@@ -178,7 +178,12 @@ def test_sine_pos_encoding_3d(t, h, w, f):
     from openpvsg_torch.models.position_encoding import sine_pos_encoding_3d
 
     got = sine_pos_encoding_3d(t, h, w, f).numpy()
-    want = np.asarray(jax.jit(jax_pe, static_argnums=(0, 1, 2, 3))(t, h, w, f))
+    # the JAX function with float64 defaults: its 2-D part's trigonometry in
+    # float64, so less float32 transcendental code compiled in this process
+    # enters the reference (against its float32 build the port was once
+    # 1.4e-4 apart on 74 (row, channel) pairs, in a six-worker run only)
+    with jax.enable_x64(True):
+        want = np.asarray(jax.jit(jax_pe, static_argnums=(0, 1, 2, 3))(t, h, w, f))
     assert got.shape == want.shape == (t, h, w, 2 * f)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
@@ -490,21 +495,15 @@ def test_checkpoint_round_trip_is_bitwise(jax_side, tmp_path, one_intra_op_threa
     ("focal_alpha", 0.5), ("sem_seg_weight", 0.5),
     ("backbone.dtype", "bfloat16")])
 def test_unported_training_values_raise(field, value):
-    """The training values once refused as unported (A9c) now build a
-    trainer that takes a finite step; the batch carries ``gt_semantic``,
-    so the semantic head trains where it exists. A compute dtype other
-    than float32 is still refused, naming ROADMAP.md A9. The agreement of
-    each option with the JAX trainer is tests/test_torch_train_options.py's."""
-    import dataclasses
-
+    """The training values once refused as unported (A9c, and the
+    bfloat16 compute dtype, A9) now build a trainer that takes a finite
+    step; the batch carries ``gt_semantic``, so the semantic head trains
+    where it exists. The agreement of each option with the JAX trainer is
+    tests/test_torch_train_options.py's, of bfloat16 compute
+    tests/test_torch_train_bf16.py's."""
     from openpvsg_torch.train.segmenter import SegmenterTrainer
 
-    if field == "backbone.dtype":
-        cfg = tcfg.apply_overrides(_tiny(tcfg), {field: value})
-        with pytest.raises(ValueError, match=r"model\.backbone\.dtype=.*ROADMAP\.md A9 "):
-            SegmenterTrainer(cfg, _train_cfg(tcfg), device="cpu")
-        return
-    cfg = dataclasses.replace(_tiny(tcfg), **{field: value})
+    cfg = tcfg.apply_overrides(_tiny(tcfg), {field: value})
     trainer = SegmenterTrainer(cfg, _train_cfg(tcfg), device="cpu")
     batch = _batch()
     batch["gt_semantic"] = np.random.default_rng(8).integers(
