@@ -250,14 +250,39 @@ Phases, each printing one JSON line:
              ring is not on the card, the two streaming backends' triplets
              differ where adjacent scores are more than 1e-4 apart, or a
              kernel disagrees with its plain version.
-15. the ``{"kernels": [...]}`` line (since phase 5's batching with each
+15. multi_device — the multi-device half (``openpvsg_torch.parallel``) on the
+             one card, TF32 off: (a) ``run_query_tube_vps`` on phase 5's 16
+             360x480 frames with a (data=2) mesh of two replicas on
+             ``cuda:0`` at 2 windows per forward (each replica's batch is
+             then the serial run's), bf16 then float32: its ``masks.txt``
+             must equal the serial run's bytes, and each replica must launch
+             B1 and B2 (its per-replica forward and fusion are wrapped to
+             count them); frames/s beside the serial run's; (b)
+             ``TimeShardedRelation`` of the d-256, 57-relation transformer
+             head on a (1, 2) mesh, T = 900, 50 pairs of 20 tubes, against
+             the one-device head: probabilities, pair matrix and span logits
+             within 1e-4 of their scale, binarized spans equal save where
+             the one-device logit lies within that of 0; ms of each; (c) two
+             ranks spawned over gloo on the card (NCCL refuses two ranks on
+             one GPU): phase 6's small step against one process on the
+             global batch at phase 6's tolerances, then
+             ``prepare_query_tube_vps`` on 3 synthetic 6-frame videos through
+             ``--dist-coordinator`` (the stage-2 CLIs join over gloo) against
+             one process: each ``masks.txt`` the same bytes; (d) one full-width
+             ``mask2former_vps`` step (4 clips) under an NCCL process group
+             of world size 1 against the plain step from the same state:
+             logs within 1e-6 of their scale; a second step of each timed
+             (ms, peak GiB). Any failure fails the phase.
+16. the ``{"kernels": [...]}`` line (since phase 5's batching with each
    kernel's ``stage2_wpb2_launches``, ``stage2_wpb4_launches`` and its
    error, ms, plain ms, bound and library ms at the 4-window batch's
    shapes; since phase 13 with each kernel's
    ``swin_launches`` and B1's Swin-shape error, ms, bound and library ms;
    since phase 14 with ``end2end_launches`` (VPS plus IPS, and each),
    ``streaming_launches`` and each kernel's error, ms, plain ms, bound and
-   library ms at end2end VPS's shape), then the last line
+   library ms at end2end VPS's shape; since phase 15 with
+   ``multi_device_launches`` (the bf16 mesh run) and
+   ``multi_device_launches_per_replica``), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -2262,7 +2287,8 @@ def run_reference_model(torch, np, seed, wrappers, dense_train):
     # one window's tensors: encoders timed alone, B1 and B2 against plain
     model = seg.model
     x = torch.from_numpy(np.stack(frames[:2])).cuda()
-    x = (x.float() - seg._mean) / seg._std
+    mean, std = seg._norm[0]
+    x = (x.float() - mean) / std
     x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 24)).to(torch.bfloat16)
     pdec = model.pixel_decoder
     with torch.no_grad():
@@ -2969,6 +2995,377 @@ def run_end2end(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
     return e2e_launches, stream_launches, fpn_rows, fusion_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device half (mesh serving, time-sharded relation
+# scoring, data-parallel training)
+# ---------------------------------------------------------------------------
+
+def attribute_launches(seg, wrappers):
+    """Per-replica launch counts of a mesh ``SegmenterInference``: its
+    per-replica forward (B1) and fusion (B2) are wrapped to add each call's
+    launches to its replica's row. Returns the rows (one dict per replica)."""
+    rows = [{fn.__name__: 0 for fn in wrappers} for _ in seg.replicas]
+
+    def wrap(method):
+        def wrapped(i, *args, **kw):
+            before = launch_counts(wrappers)
+            out = method(i, *args, **kw)
+            for name, n in launch_counts(wrappers).items():
+                rows[i][name] += n - before[name]
+            return out
+        return wrapped
+
+    seg._forward = wrap(seg._forward)
+    seg._fuse = wrap(seg._fuse)
+    return rows
+
+
+def mesh_serving(torch, np, cfg, state, seed, wrappers, dev, n_frames=16):
+    """(a): stage 2 on a (data=2) mesh of two replicas on one card at 2
+    windows per forward against the serial run, bf16 then float32."""
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.infer.stages import run_query_tube_vps
+    from openpvsg_torch.parallel.mesh import make_mesh
+
+    frames = list(synthetic_frames(np, n_frames, 360, 480, seed))
+    mesh = make_mesh(n_data=2, devices=[dev, dev])
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            runs = {}
+            for kind in ("serial", "mesh"):
+                seg = SegmenterInference(cfg, state, dtype=dtype,
+                                         mesh=mesh if kind == "mesh" else None)
+                wpb = 2 if kind == "mesh" else 1
+                run_query_tube_vps(seg, frames[:4], os.path.join(tmp, f"warm_{kind}"),
+                                   window=2, windows_per_batch=wpb)
+                per_replica = attribute_launches(seg, wrappers) if kind == "mesh" else None
+                for fn in wrappers:
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                root = os.path.join(tmp, f"{name}_{kind}")
+                run_query_tube_vps(seg, frames, root, window=2, windows_per_batch=wpb)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                with open(os.path.join(root, "quantitive", "masks.txt"), "rb") as f:
+                    runs[kind] = {"masks": f.read(), "seconds": seconds,
+                                  "launches": launch_counts(wrappers),
+                                  "per_replica": per_replica,
+                                  "replica_devices": [str(next(m.parameters()).device)
+                                                      for m in seg.replicas]}
+                del seg
+            rows[name] = {
+                "frames": n_frames, "window": 2, "windows_per_batch_mesh": 2,
+                "masks_txt_identical": runs["mesh"]["masks"] == runs["serial"]["masks"],
+                "masks_txt_lines": len(runs["serial"]["masks"].decode().splitlines()),
+                "serial_frames_per_s": n_frames / runs["serial"]["seconds"],
+                "mesh_frames_per_s": n_frames / runs["mesh"]["seconds"],
+                "serial_launches": runs["serial"]["launches"],
+                "mesh_launches": runs["mesh"]["launches"],
+                "mesh_launches_per_replica": runs["mesh"]["per_replica"],
+                "replica_devices": runs["mesh"]["replica_devices"]}
+    return rows
+
+
+def time_sharded_relation(torch, np, seed, mesh, n_tubes=20, n_pairs=50, T=900):
+    """(b): the d-256, 57-relation transformer head over ``mesh`` (a (1, 2)
+    mesh of one card here) against the one-device head on the mesh's first
+    device, both from host features as the
+    evaluation feeds them: the pair matrix, then the pairs gathered on the
+    device and scored (``predict_pairs``); and the span logits of
+    ``predict`` on the same pair tensor."""
+    from openpvsg_torch.config import RelationHeadConfig
+    from openpvsg_torch.models.relation.heads import RelationModel
+    from openpvsg_torch.parallel.tp import TimeShardedRelation
+    from openpvsg_torch.train.segmenter import ieee_float32
+    from openpvsg_torch.weights import random_relation_state_dict
+
+    dev = mesh.first
+    rcfg = RelationHeadConfig(model_name="transformer")
+    model = RelationModel.from_config(rcfg)
+    model.load_state_dict(random_relation_state_dict(rcfg, seed))
+    model = model.to(dev).eval()
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((n_tubes, T, rcfg.d_model)).astype(np.float32)
+    idx = np.stack([rng.permutation(n_tubes)[:2] for _ in range(n_pairs)]).astype(np.int64)
+    ts = TimeShardedRelation(mesh, model)
+
+    def one():
+        with torch.no_grad(), ieee_float32():
+            out = model(torch.from_numpy(feats).to(dev))
+            r = torch.from_numpy(idx).to(dev)
+            pair = torch.cat([out["sub_feats"][r[:, 0]], out["obj_feats"][r[:, 1]]], -1)
+            span, prob = model.predict(pair)
+            return out["pred_matrix"], pair, span, prob
+
+    def sharded():
+        out = ts.propose(feats)
+        return (out["pred_matrix"],) + ts.predict_pairs(out, idx)
+
+    (pm1, pair, span1, prob1), (pm2, span_bin, prob2) = one(), sharded()
+    span2, _ = ts.predict(pair)
+    scale = max(float(span1.abs().max()), float(prob1.abs().max()), 1.0)
+    flips = (span1 > 0).cpu().numpy() != span_bin
+    near = float(np.abs(span1.cpu().numpy()[flips]).max()) if flips.any() else 0.0
+    row = {"model": "relation_head('transformer') d 256, 57 relations",
+           "tubes": n_tubes, "pairs": n_pairs, "frames": T,
+           "mesh": [mesh.shape["data"], mesh.shape["time"]],
+           "devices": [str(d) for d in mesh.axis_devices(None)],
+           "span_max_abs_err": max_abs(span1, span2),
+           "prob_max_abs_err": max_abs(prob1, torch.from_numpy(prob2).to(dev)),
+           "pred_matrix_max_abs_err": max_abs(pm1, pm2), "scale": scale,
+           "spans_binarized_equal": not bool(flips.any()),
+           "span_flips": int(flips.sum()), "span_flips_max_abs_logit": near,
+           "one_device_ms": call_ms(torch, one, reps=5, warmup=1),
+           "time_sharded_ms": call_ms(torch, sharded, reps=5, warmup=1)}
+    # binarized spans equal, save where the one-device logit is within the
+    # tolerance of 0 (two float32 summation orders may put it either side)
+    row["ok"] = (row["prob_max_abs_err"] <= 1e-4 * scale
+                 and row["pred_matrix_max_abs_err"] <= 1e-4 * scale
+                 and row["span_max_abs_err"] <= 1e-4 * scale and near <= 1e-4 * scale)
+    return row
+
+
+def ddp_worker(argv):
+    """One rank of (c)'s two-rank train step (``chip_smoke.py --ddp-worker
+    RANK WORLD PORT OUT SEED``): phase 6's small model and batch, gloo on
+    cuda:0; writes the step's logs, global gradients and parameters."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    rank, world, port, out, seed = int(argv[0]), int(argv[1]), int(argv[2]), argv[3], int(argv[4])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        cfg = tiny_train_config()
+        batch = train_batch(np, 2, 2, (64, 64), (64, 64), 3, cfg.num_classes, seed)
+        trainer = SegmenterTrainer(cfg, TrainConfig(warmup_ratio=1.0), steps_per_epoch=10,
+                                   device="cuda:0", state_dict=random_state_dict(cfg, seed),
+                                   process_group=dist.group.WORLD)
+        _, logs = trainer.loss_and_grads(batch)
+        grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        trainer.apply_updates()
+        torch.save({"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
+                    "params": [p.detach().cpu().clone() for p in trainer.params]}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, timeout):
+    """(return code, output) of each process; all are killed at the limit."""
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+        outs.append((p.returncode, out))
+    return outs
+
+
+def two_rank_step(torch, np, seed):
+    """(c) first half: two spawned ranks over gloo on cuda:0 against one
+    process on the global batch, at phase 6's tolerances."""
+    from openpvsg_torch.config import TrainConfig
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, here, "--ddp-worker", str(r), "2",
+                                   str(port), os.path.join(tmp, f"rank{r}.pt"), str(seed)],
+                                  cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        for r, (rc, out) in enumerate(wait_all(procs, 300)):
+            if rc != 0:
+                fail(f"multi_device: DDP rank {r} exited {rc}: {out[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    cfg = tiny_train_config()
+    batch = train_batch(np, 2, 2, (64, 64), (64, 64), 3, cfg.num_classes, seed)
+    one = SegmenterTrainer(cfg, TrainConfig(warmup_ratio=1.0), steps_per_epoch=10,
+                           state_dict=random_state_dict(cfg, seed))
+    _, logs = one.loss_and_grads(batch)
+    logs = {k: float(v.detach()) for k, v in logs.items()}
+    names = [n for n, _ in one.model.named_parameters()]
+    grads = {n: p.grad.detach().cpu().clone() for n, p in zip(names, one.params)}
+    before = [p.detach().cpu().clone() for p in one.params]
+    one.apply_updates()
+    after = [p.detach().cpu() for p in one.params]
+    loss_rel = max(abs(ranks[0]["logs"][k] - v) / max(abs(v), 1e-12) for k, v in logs.items())
+    grad_rel, grad_at = grad_rel_diff(ranks[0]["grads"], {n: g.double() for n, g in grads.items()})
+    gap, gap_at = update_gap(names, before, after, ranks[0]["params"])
+    ranks_equal = all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"]))
+    row = {"size": "phase 6's small model, B=2 (one clip per rank), gloo on cuda:0",
+           "loss_one_process": logs["loss"], "loss_two_ranks": ranks[0]["logs"]["loss"],
+           "max_loss_rel_diff": loss_rel, "max_grad_rel_diff": grad_rel,
+           "max_grad_rel_diff_at": grad_at, "max_update_gap_share": gap,
+           "max_update_gap_at": gap_at, "ranks_params_equal": ranks_equal}
+    row["ok"] = loss_rel <= 1e-3 and grad_rel <= 1e-2 and gap <= 1e-2 and ranks_equal
+    return row
+
+
+def two_process_stage2(np, seed, cfg):
+    """(c) second half: ``prepare_query_tube_vps`` over two ranks (gloo, one
+    card) through the --dist-* flags against one process: masks.txt bytes."""
+    from openpvsg_torch.tools.common import parse_summary
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        run_cli("make_synthetic_data", ["--out", data, "--train-videos", "0",
+                                        "--val-videos", "3", "--frames", "6",
+                                        "--size", "360", "480", "--seed", str(seed)])
+        args = ["--config", "mask2former_vps", "--data-dir", data,
+                "--anno-file", os.path.join(data, "pvsg.json"), "--split", "val",
+                "--set", f"model.object_mask_thr={cfg.object_mask_thr}",
+                f"model.iou_thr={cfg.iou_thr}"]
+        t0 = time.perf_counter()
+        _, one, _ = run_cli("prepare_query_tube_vps", args + ["--work-dir",
+                                                              os.path.join(tmp, "one")])
+        one_s = time.perf_counter() - t0
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "openpvsg_torch.tools.prepare_query_tube_vps", *args,
+             "--work-dir", os.path.join(tmp, "two"), "--dist-coordinator",
+             f"localhost:{port}", "--dist-num-processes", "2", "--dist-process-id", str(r)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = wait_all(procs, 600)
+        two_s = time.perf_counter() - t0
+        for r, (rc, out) in enumerate(outs):
+            if rc != 0:
+                fail(f"multi_device: prepare_query_tube_vps rank {r} exited {rc}: "
+                     f"{out[-3000:]}")
+        summaries = [parse_summary(out) for _, out in outs]
+        vids = sorted(os.listdir(os.path.join(tmp, "one", "val_save_qf")))
+        vids = [v for v in vids if os.path.isdir(os.path.join(tmp, "one", "val_save_qf", v))]
+        same = []
+        for vid in vids:
+            files = [os.path.join(tmp, run, "val_save_qf", vid, "quantitive", "masks.txt")
+                     for run in ("one", "two")]
+            with open(files[0], "rb") as a, open(files[1], "rb") as b:
+                same.append(a.read() == b.read())
+    return {"videos": len(vids), "frames_per_video": 6, "frame_hw": [360, 480],
+            "videos_per_rank": [s["videos"] for s in summaries],
+            "launches_per_rank": [s["launches"] for s in summaries],
+            "one_process_launches": one["launches"],
+            "one_process_seconds": one_s, "two_process_seconds": two_s,
+            "masks_txt_identical": same, "ok": len(vids) == 3 and all(same)
+            and sorted(s["videos"] for s in summaries) == [1, 2]}
+
+
+def nccl_world_one_step(torch, np, seed, clips=4):
+    """(d): one full-width ``mask2former_vps`` step under an NCCL process
+    group of one rank against the plain step from the same state: logs
+    within 1e-6 of their scale; then a second step of each, timed."""
+    import torch.distributed as dist
+
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
+
+    pvsg = mask2former_vps()
+    cfg, tcfg = pvsg.model, pvsg.train
+    batch = train_batch(np, clips, cfg.num_frames, (360, 480), (384, 480), 20,
+                        cfg.num_classes, seed)
+    state = random_state_dict(cfg, seed)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        runs = {}
+        for kind in ("plain", "nccl"):
+            trainer = SegmenterTrainer(cfg, tcfg, steps_per_epoch=1000, seed=seed,
+                                       state_dict=state,
+                                       process_group=dist.group.WORLD if kind == "nccl" else None)
+            first = trainer.step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            second = trainer.step(batch)
+            torch.cuda.synchronize()
+            runs[kind] = {"logs": first, "second_loss": second["loss"],
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    scale = max(abs(v) for v in runs["plain"]["logs"].values())
+    diff = max(abs(runs["nccl"]["logs"][k] - v) for k, v in runs["plain"]["logs"].items())
+    row = {"config": "mask2former_vps", "clips": clips, "frames_per_clip": cfg.num_frames,
+           "frame_hw": [360, 480], "backend": "nccl", "world": 1,
+           "loss_plain": runs["plain"]["logs"]["loss"], "loss_nccl": runs["nccl"]["logs"]["loss"],
+           "max_log_abs_diff": diff, "log_scale": scale,
+           "step_ms_plain": runs["plain"]["ms"], "step_ms_nccl": runs["nccl"]["ms"],
+           "peak_gib_plain": runs["plain"]["peak_gib"], "peak_gib_nccl": runs["nccl"]["peak_gib"],
+           "second_loss_finite": bool(np.isfinite(runs["nccl"]["second_loss"]))}
+    row["ok"] = diff <= 1e-6 * scale and row["second_loss_finite"]
+    return row
+
+
+def run_multi_device(torch, np, seed, wrappers, cfg, state, dev):
+    """Phase 15: (a) mesh serving, (b) the time-sharded relation head, (c)
+    two ranks over gloo on the one card (a train step, then stage 2 through
+    the CLI), (d) an NCCL step at world size 1. Returns (a)'s bf16 launch
+    counts: the whole mesh run's, and each replica's."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    problems = []
+    serving = mesh_serving(torch, np, cfg, state, seed, wrappers, dev)
+    for name, r in serving.items():
+        emit({"phase": "multi_device", "part": "mesh_serving", "dtype": name, **r})
+        if not r["masks_txt_identical"]:
+            problems.append(f"the mesh's {name} masks.txt differs from the serial run's")
+        if any(v == 0 for rep in r["mesh_launches_per_replica"] for v in rep.values()):
+            problems.append(f"a replica launched no B1 or B2 ({name}): "
+                            f"{r['mesh_launches_per_replica']}")
+    from openpvsg_torch.parallel.mesh import make_mesh
+
+    tsr = time_sharded_relation(torch, np, seed, make_mesh(n_data=1, n_time=2,
+                                                           devices=[dev, dev]))
+    emit({"phase": "multi_device", "part": "time_sharded_relation", **tsr})
+    if not tsr["ok"]:
+        problems.append("the time-sharded relation head disagrees with one device")
+    ddp = two_rank_step(torch, np, seed)
+    emit({"phase": "multi_device", "part": "two_rank_gloo_step", **ddp})
+    if not ddp["ok"]:
+        problems.append("the two-rank step disagrees with one process")
+    st2 = two_process_stage2(np, seed, cfg)
+    emit({"phase": "multi_device", "part": "two_process_stage2", **st2})
+    if not st2["ok"]:
+        problems.append("the two-process stage 2 differs from one process")
+    nccl = nccl_world_one_step(torch, np, seed)
+    emit({"phase": "multi_device", "part": "nccl_world_one_step", **nccl})
+    if not nccl["ok"]:
+        problems.append("the NCCL step at world size 1 differs from the plain step")
+    emit({"phase": "multi_device", "ok": not problems, "problems": problems,
+          "seconds": time.perf_counter() - t_phase})
+    if problems:
+        fail("multi_device: " + "; ".join(problems))
+    bf16 = serving["bfloat16"]
+    return bf16["mesh_launches"], bf16["mesh_launches_per_replica"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3091,7 +3488,12 @@ def main(argv=None) -> int:
     e2e_launches, stream_launches, e2e_fpn, e2e_fusion = run_end2end(
         torch, np, args.seed, gen, dev, float(clock) * 1e6, wrappers)
 
-    # 15. the kernels line and the result
+    # 15. the multi-device half on the one card (its mesh run's launch counts
+    # are zeroed just before it and read just after)
+    md_launches, md_per_replica = run_multi_device(torch, np, args.seed, wrappers,
+                                                   cfg, state, dev)
+
+    # 16. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -3126,7 +3528,10 @@ def main(argv=None) -> int:
                                        + e2e_launches["ips"][fn.__name__]),
                      end2end_vps_launches=e2e_launches["vps"][fn.__name__],
                      end2end_ips_launches=e2e_launches["ips"][fn.__name__],
-                     streaming_launches=stream_launches[fn.__name__])
+                     streaming_launches=stream_launches[fn.__name__],
+                     multi_device_launches=md_launches[fn.__name__],
+                     multi_device_launches_per_replica=[r[fn.__name__]
+                                                        for r in md_per_replica])
         e2e = e2e_fusion["smoke"] if name == "fusion_maps" else e2e_fpn[(name, "bfloat16")]
         entry.update(end2end_vps_shape=([2, 100, 96, 160] if name == "fusion_maps"
                                         else [2, 96, 160, 256]),
@@ -3175,4 +3580,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -35,6 +35,10 @@ counterpart is found by its path:
 - ``openpvsg_torch.tracker`` — IPS stage 2's mask tracker (Kalman filter,
   track states, association costs with the reconsdot cost on the device,
   the appearance encoder zoo) and the query-feature tubes.
+- ``openpvsg_torch.parallel`` — the multi-device half: a ``(data, time)``
+  mesh of local devices with replicated modules, the frame- and pair-
+  sharded executors, the time-sharded relation head, and the
+  ``torch.distributed`` helpers of the multi-process trainer and CLIs.
 - ``openpvsg_torch.native``  — ctypes binding of ``native/pvsg_native.cpp``.
 
 The port imports torch, numpy and scipy only; it never imports jax, flax or

@@ -128,7 +128,8 @@ class Mask2FormerConfig:
 class TrainConfig:
     """Segmenter optimization (reference config lines 163-191 + schedules).
     ``samples_per_gpu`` sets the train CLI's global batch
-    (``max(samples_per_gpu // 4, 1)`` clips on one device); ``epochs``,
+    (``max(samples_per_gpu // 4, world)`` clips, rounded down to a multiple
+    of the ranks of a multi-process run); ``epochs``,
     ``seed``, ``checkpoint_interval`` and ``log_interval`` are read by the
     train CLI only."""
     lr: float = 1e-4

@@ -11,6 +11,13 @@ host; ``device_gather=False`` gathers them on the host (the oracle). Both
 feed the same ``predict`` call with the same padded tensor (padded frames
 zero), so their results are equal. The forward runs in IEEE float32 (TF32
 off), whatever the caller set.
+
+An ``executor`` (``parallel.tp.TimeShardedRelation``) runs the model over
+its mesh instead, frames split over 'time' and pairs over 'data'
+(``openpvsg_tpu/eval/rel_eval.py:107-182``): ``propose`` on the padded
+video, then ``predict_pairs`` (the gather on the devices) or, with
+``device_gather=False``, ``predict`` on the host-built pair tensor, the
+same tensor, so the two modes give the same triplets.
 """
 from __future__ import annotations
 
@@ -40,31 +47,21 @@ def _bucket(n: int, buckets) -> int:
     return ((n + buckets[-1] - 1) // buckets[-1]) * buckets[-1]
 
 
-def _no_executor(executor):
-    if executor is not None:
-        raise NotImplementedError(
-            "executor (parallel.tp.TimeShardedRelation) is not ported to "
-            "openpvsg_torch; ROADMAP.md A13 ports the multi-device paths")
-
-
 @torch.no_grad()
 def evaluate_video(model: torch.nn.Module, feats: np.ndarray,
                    num_top_pairs: int = 100, pairwise: bool = True,
                    executor=None, device_gather: bool = True):
-    """Forward one video (N, T, D) on the model's device; returns
-    (selected_pairs, ranked results)."""
-    _no_executor(executor)
+    """Forward one video (N, T, D) on the model's device, or over the
+    ``executor``'s mesh; returns (selected_pairs, ranked results)."""
+    if executor is not None:
+        return _evaluate_video_mesh(executor, feats, num_top_pairs, pairwise,
+                                    device_gather)
     dev = next(model.parameters()).device
-    n, t, d = feats.shape
-    nb = _bucket(n, TUBE_BUCKETS)
-    tb = _bucket(t, FRAME_BUCKETS)
-    fp = np.zeros((nb, tb, d), np.float32)
-    fp[:n, :t] = feats
-    tube_valid = torch.zeros(nb, dtype=torch.bool)
-    tube_valid[:n] = True
-    frame_valid = torch.zeros(tb, dtype=torch.bool)
-    frame_valid[:t] = True
-    tube_valid, frame_valid = tube_valid.to(dev), frame_valid.to(dev)
+    n, t, _ = feats.shape
+    fp, tube_valid, frame_valid = _padded(feats)
+    tb = fp.shape[1]
+    tube_valid = torch.from_numpy(tube_valid).to(dev)
+    frame_valid = torch.from_numpy(frame_valid).to(dev)
 
     with ieee_float32():
         out = model(torch.from_numpy(fp).to(dev), tube_valid=tube_valid,
@@ -98,13 +95,54 @@ def evaluate_video(model: torch.nn.Module, feats: np.ndarray,
     return selected_pairs, gen(span_bin.astype(np.float32), prob, selected_pairs)
 
 
+def _padded(feats: np.ndarray):
+    """The video padded to the evaluation buckets, with its tube and frame
+    validity."""
+    n, t, d = feats.shape
+    nb, tb = _bucket(n, TUBE_BUCKETS), _bucket(t, FRAME_BUCKETS)
+    fp = np.zeros((nb, tb, d), np.float32)
+    fp[:n, :t] = feats
+    tube_valid = np.zeros(nb, bool)
+    tube_valid[:n] = True
+    frame_valid = np.zeros(tb, bool)
+    frame_valid[:t] = True
+    return fp, tube_valid, frame_valid
+
+
+def _evaluate_video_mesh(executor, feats, num_top_pairs, pairwise, device_gather):
+    n, t, _ = feats.shape
+    fp, tube_valid, frame_valid = _padded(feats)
+    out = executor.propose(fp, tube_valid=tube_valid, frame_valid=frame_valid)
+    selected_pairs = pick_top_pairs_eval(out["pred_matrix"][:n, :n].cpu().numpy(),
+                                         num_top_pairs)
+    if not selected_pairs:
+        return [], []
+    P = len(selected_pairs)
+    pb = _bucket(P, PAIR_BUCKETS)
+    idx = np.zeros((pb, 2), np.int64)
+    idx[:P] = np.asarray(selected_pairs, np.int64)
+    if device_gather:
+        span_bin, prob = executor.predict_pairs(out, idx, frame_valid)
+        span_bin, prob = span_bin[:P, :t], prob[:P]
+    else:
+        sub = out["sub_feats"].full()[:n, :t].cpu().numpy()
+        obj = out["obj_feats"].full()[:n, :t].cpu().numpy()
+        pair_feats = concatenate_sub_obj(sub, obj, selected_pairs)
+        pf = np.zeros((pb, fp.shape[1], pair_feats.shape[-1]), np.float32)
+        pf[:P, :t] = pair_feats
+        span, prob = executor.predict(pf, frame_valid=frame_valid)
+        span_bin = (span[:P, :t] > 0).cpu().numpy()
+        prob = prob[:P].cpu().numpy()
+    gen = generate_pairwise_results if pairwise else generate_results
+    return selected_pairs, gen(span_bin.astype(np.float32), prob, selected_pairs)
+
+
 def evaluate(model: torch.nn.Module, dataset, num_top_pairs: int,
              relation_names: Sequence[str], pairwise: bool = True,
              executor=None, device_gather: bool = True) -> Dict:
     """dataset yields {'feats': (N, T, D), 'relations': [...]}. Returns
     {'pair_recall_20', K: {recall, mean_recall, weak_recall,
     weak_mean_recall}} (reference: rel_test.py evaluate)."""
-    _no_executor(executor)
     recall_dict = {
         K: {idx: {"name": name, "total": 0, "hit": 0, "weak_hit": 0}
             for idx, name in enumerate(relation_names)}
@@ -116,7 +154,8 @@ def evaluate(model: torch.nn.Module, dataset, num_top_pairs: int,
         feats = np.asarray(item["feats"], dtype=np.float32)
         gt_relations = item["relations"]
         selected_pairs, results = evaluate_video(
-            model, feats, num_top_pairs, pairwise, device_gather=device_gather)
+            model, feats, num_top_pairs, pairwise, executor=executor,
+            device_gather=device_gather)
         gt_pairs = [[int(r["subject_index"]), int(r["object_index"])]
                     for r in gt_relations]
         pair_recalls.append(pair_recall_at_k(

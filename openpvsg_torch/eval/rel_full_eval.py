@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from openpvsg_torch.data.pvsg import PVSGRelationAnnotation, frame_paths
-from openpvsg_torch.eval.rel_eval import _no_executor, evaluate_video
+from openpvsg_torch.eval.rel_eval import evaluate_video
 from openpvsg_torch.eval.rel_metrics import GtTubeCache, calculate_viou, final_metrics
 
 K_VALUES = (20, 50, 100)
@@ -37,8 +37,7 @@ def evaluate_full(
 ) -> Dict:
     """{'metrics', 'soft_metrics'}, each {K: {recall, mean_recall,
     weak_recall, weak_mean_recall}}; the GT object-id maps are read from
-    the mask PNGs under ``data_dir``."""
-    _no_executor(executor)
+    the mask PNGs under ``data_dir``. ``executor``: ``evaluate_video``'s."""
     relation_names = relation_names or anno.relations
     recall = {K: {i: {"name": n, "total": 0, "hit": 0, "weak_hit": 0}
                   for i, n in enumerate(relation_names)} for K in K_VALUES}
@@ -49,7 +48,8 @@ def evaluate_full(
         vid = item["vid"]
         feats = np.asarray(item["feats"], np.float32)
         _, results = evaluate_video(model, feats, num_top_pairs=num_top_pairs,
-                                    pairwise=False, device_gather=device_gather)
+                                    pairwise=False, executor=executor,
+                                    device_gather=device_gather)
         if not results:
             continue
 

@@ -160,7 +160,7 @@ def run_query_tube_vps(
     chain_windows: bool = False,
     pipeline_depth: int = 2,
     save_images: bool = False,
-    windows_per_batch: int = 1,
+    windows_per_batch: Optional[int] = None,
 ) -> int:
     """VPS stage 2 for one video; returns the number of tubes.
 
@@ -170,8 +170,9 @@ def run_query_tube_vps(
     chain_windows carries the last frame's aligned query embeddings across
     windows (off by default, as in the reference). save_images writes the
     ``qualititive/`` overlays. ``windows_per_batch`` windows run as one
-    forward (1 by default: the JAX package's default without a mesh, and
-    the port has none); pipeline_depth such batches are enqueued on the
+    forward (by default one per replica of the segmenter's mesh, 1 without
+    one, as ``openpvsg_tpu/infer/stages.py:182-196``: each replica then
+    takes one window); pipeline_depth such batches are enqueued on the
     device before the oldest is fetched and stitched. Each frame's forward
     and fusion are its own and the MinVIS stitch runs per window on the
     host, so results are identical at any batch and depth, chained or not
@@ -181,6 +182,9 @@ def run_query_tube_vps(
     object_list: List[int] = []
     feat_tubes: Dict[int, Dict[int, Dict]] = {}
 
+    if windows_per_batch is None:
+        windows_per_batch = (segmenter.mesh.shape["data"]
+                             if segmenter.mesh is not None else 1)
     per_batch = window * windows_per_batch
 
     def dispatch(lo: int):

@@ -141,10 +141,11 @@ def lateral_stats(f0: torch.Tensor, w_lat: torch.Tensor, b_lat: torch.Tensor):
     _check("b_lat", b_lat, (C,), torch.float32, dev)
     _check_channels("lateral_stats", dt, Cin=Cin, C=C)
     out = torch.empty((B, H, W, C), dtype=dt, device=dev)
-    part = _partials(dt, 0, B, H, W, C, dev)
-    rc = _lib().fpn_lateral(_DTYPE_CODE[dt], f0.data_ptr(), w_lat.data_ptr(),
-                            b_lat.data_ptr(), out.data_ptr(), part.data_ptr(),
-                            B, H * W, Cin, C, _stream(dev))
+    with torch.cuda.device(dev):  # the library's per-device caches
+        part = _partials(dt, 0, B, H, W, C, dev)
+        rc = _lib().fpn_lateral(_DTYPE_CODE[dt], f0.data_ptr(), w_lat.data_ptr(),
+                                b_lat.data_ptr(), out.data_ptr(), part.data_ptr(),
+                                B, H * W, Cin, C, _stream(dev))
     _raise_on(rc, "fpn_lateral")
     lateral_stats.launches += 1
     s, q = part.sum(dim=-1)
@@ -190,11 +191,12 @@ def conv3x3_stats(l_raw, s8, sc1, bi1, w_out, b_out):
     _check("b_out", b_out, (N,), torch.float32, dev)
     _check_channels("conv3x3_stats", dt, C=C, N=N)
     out = torch.empty((B, H, W, N), dtype=dt, device=dev)
-    part = _partials(dt, 1, B, H, W, N, dev)
-    rc = _lib().fpn_conv3x3(
-        _DTYPE_CODE[dt], l_raw.data_ptr(), s8.data_ptr(), sc1.data_ptr(),
-        bi1.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        part.data_ptr(), B, H, W, H8, W8, C, N, _stream(dev))
+    with torch.cuda.device(dev):
+        part = _partials(dt, 1, B, H, W, N, dev)
+        rc = _lib().fpn_conv3x3(
+            _DTYPE_CODE[dt], l_raw.data_ptr(), s8.data_ptr(), sc1.data_ptr(),
+            bi1.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
+            part.data_ptr(), B, H, W, H8, W8, C, N, _stream(dev))
     _raise_on(rc, "fpn_conv3x3")
     conv3x3_stats.launches += 1
     s, q = part.sum(dim=-1)
@@ -233,9 +235,10 @@ def mask_proj(x2, sc2, bi2, w_mask, b_mask):
     _check("b_mask", b_mask, (Cout,), torch.float32, dev)
     _check_channels("mask_proj", dt, C=C, Cout=Cout)
     out = torch.empty((B, H, W, Cout), dtype=dt, device=dev)
-    rc = _lib().fpn_mask(_DTYPE_CODE[dt], x2.data_ptr(), sc2.data_ptr(),
-                         bi2.data_ptr(), w_mask.data_ptr(), b_mask.data_ptr(),
-                         out.data_ptr(), B, H * W, C, Cout, _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _lib().fpn_mask(_DTYPE_CODE[dt], x2.data_ptr(), sc2.data_ptr(),
+                             bi2.data_ptr(), w_mask.data_ptr(), b_mask.data_ptr(),
+                             out.data_ptr(), B, H * W, C, Cout, _stream(dev))
     _raise_on(rc, "fpn_mask")
     mask_proj.launches += 1
     return out

@@ -75,11 +75,12 @@ def _launch(mask_low, scores, ori_h, ori_w, sigmoid_count=None):
     owner = torch.empty((N, H, W), dtype=torch.int32, device=dev)
     binary = torch.empty((N, H, W), dtype=torch.bool, device=dev)
     mask_area, original_area = torch.zeros((2, N, Q), dtype=torch.int32, device=dev)
-    rc = _lib().fusion_maps(
-        mask_low.data_ptr(), scores.data_ptr(), owner.data_ptr(),
-        binary.data_ptr(), mask_area.data_ptr(), original_area.data_ptr(),
-        None if sigmoid_count is None else sigmoid_count.data_ptr(),
-        N, Q, h, w, ori_h, ori_w, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = _lib().fusion_maps(
+            mask_low.data_ptr(), scores.data_ptr(), owner.data_ptr(),
+            binary.data_ptr(), mask_area.data_ptr(), original_area.data_ptr(),
+            None if sigmoid_count is None else sigmoid_count.data_ptr(),
+            N, Q, h, w, ori_h, ori_w, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fusion_maps failed with CUDA error {rc}")
     return owner, binary, mask_area, original_area

@@ -32,6 +32,20 @@ from openpvsg_torch.models.transformer_decoder import LN_EPS, MultiheadAttention
 _NEG = torch.finfo(torch.float32).min
 
 
+def masked_frame_max(x, frame_valid: Optional[torch.Tensor] = None):
+    """The max over dim 1 (frames) of (N, T, ...) ``x``; frame_valid (T,)
+    keeps padded frames out of it."""
+    if frame_valid is not None:
+        x = x.masked_fill(~frame_valid.view(1, -1, *[1] * (x.dim() - 2)), _NEG)
+    return x.amax(dim=1)
+
+
+def pair_interaction_feats(pair_feats):
+    """[s, o, s - o, s * o] of the (..., 2D) pair features [s, o]."""
+    s, o = torch.chunk(pair_feats, 2, dim=-1)
+    return torch.cat([pair_feats, s - o, s * o], dim=-1)
+
+
 class TorchEncoderLayer(nn.Module):
     """torch.nn.TransformerEncoderLayer semantics: post-norm, relu FFN.
     ``mask`` (broadcastable to (B, L, L), True = may attend) keeps padded
@@ -46,7 +60,12 @@ class TorchEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        x = self.norm1(x + self.self_attn(x, x, x, mask=mask))
+        return self.finish(x, self.self_attn(x, x, x, mask=mask))
+
+    def finish(self, x, attn):
+        """The residuals, norms and FFN after ``attn``, the self-attention
+        of ``x``."""
+        x = self.norm1(x + attn)
         y = self.linear2(F.relu(self.linear1(x)))
         return self.norm2(x + y)
 
@@ -85,12 +104,11 @@ class PairProposalNetwork(nn.Module):
         """(N, T, D) x2 -> (N, N) pair logits with a zero diagonal (the
         reference never fills i == j); frame_valid (T,) keeps padded frames
         out of the temporal max."""
-        if frame_valid is not None:
-            fv = frame_valid[None, :, None]
-            encoded_subjects = encoded_subjects.masked_fill(~fv, _NEG)
-            encoded_objects = encoded_objects.masked_fill(~fv, _NEG)
-        sub = encoded_subjects.amax(dim=1)  # (N, D)
-        obj = encoded_objects.amax(dim=1)
+        return self.score(masked_frame_max(encoded_subjects, frame_valid),
+                          masked_frame_max(encoded_objects, frame_valid))
+
+    def score(self, sub, obj):
+        """The MLP on the temporal maxima (N, D) x2 -> (N, N) pair logits."""
         d = self.feature_dim
         a_s = sub @ self.fc1_kernel[:d]
         a_o = obj @ self.fc1_kernel[d:]
@@ -112,13 +130,14 @@ class _PredHeads(nn.Module):
         self.pred_head = nn.Linear(input_dim // 4, num_relations)
 
     def forward(self, x, frame_valid: Optional[torch.Tensor] = None):
+        span, pred = self.per_frame(x)
+        return span, masked_frame_max(pred, frame_valid)
+
+    def per_frame(self, x):
+        """(span, relation) logits of every frame, before the max over T."""
         x = F.relu(self.fc1(x))
         x = F.relu(self.fc2(x))
-        span = self.span_head(x)
-        pred = self.pred_head(x)
-        if frame_valid is not None:
-            pred = pred.masked_fill(~frame_valid[None, :, None], _NEG)
-        return span, pred.amax(dim=1)
+        return self.span_head(x), self.pred_head(x)
 
 
 class VanillaModel(nn.Module):
@@ -146,12 +165,18 @@ class TemporalTransformer(nn.Module):
     def forward(self, x, frame_valid=None):
         """x (P, T, 2D); frame_valid (T,) masks padded frames out of the
         temporal attention and the relation max."""
-        T = x.shape[1]
-        x = x + sine_embed_1d(T, self.input_dim, device=x.device).to(x.dtype)[None]
+        x = self.add_positions(x)
         mask = None if frame_valid is None else frame_valid[None, None, :]
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, mask=mask)
         return self.heads(self.final_norm(x), frame_valid)
+
+    def add_positions(self, x, start: int = 0, length: Optional[int] = None):
+        """x (P, S, 2D) plus the sine positions of frames [start, start + S)
+        of a sequence of ``length`` frames (default S)."""
+        s = x.shape[1]
+        pe = sine_embed_1d(length or s, self.input_dim, device=x.device)
+        return x + pe[start:start + s].to(x.dtype)[None]
 
 
 class HandcraftedFilter(nn.Module):
@@ -162,12 +187,18 @@ class HandcraftedFilter(nn.Module):
         super().__init__()
         self.heads = _PredHeads(input_dim, num_relations)
 
+    KERNEL = (0.25, 0.5, 1.0, 0.5, 0.25)
+    halo = len(KERNEL) // 2
+
     def forward(self, x, frame_valid=None):
-        kernel = (0.25, 0.5, 1.0, 0.5, 0.25)
-        xp = F.pad(x, (0, 0, 2, 2))
-        T = x.shape[1]
-        out = sum(kernel[i] * xp[:, i:i + T, :] for i in range(5))
-        return self.heads(out, frame_valid)
+        return self.heads(self.smooth(F.pad(x, (0, 0, self.halo, self.halo))),
+                          frame_valid)
+
+    def smooth(self, xp):
+        """The filter over (P, S + 2 * halo, D) frames, zeros or the
+        neighbouring frames around the S -> (P, S, D)."""
+        s = xp.shape[1] - 2 * self.halo
+        return sum(k * xp[:, i:i + s] for i, k in enumerate(self.KERNEL))
 
 
 class Learnable1DConv(nn.Module):
@@ -175,16 +206,24 @@ class Learnable1DConv(nn.Module):
                  kernel_size: int = 5, num_layers: int = 1):
         super().__init__()
         self.num_layers = num_layers
+        self.halo = kernel_size // 2
         for i in range(num_layers):
-            self.add_module(f"conv_{i}", nn.Conv1d(
-                input_dim, input_dim, kernel_size, padding=kernel_size // 2))
+            # padded in ``forward``: a time shard pads with its neighbours'
+            # frames instead (parallel/tp.py)
+            self.add_module(f"conv_{i}", nn.Conv1d(input_dim, input_dim, kernel_size))
         self.heads = _PredHeads(input_dim, num_relations)
 
     def forward(self, x, frame_valid=None):
-        x = x.transpose(1, 2)  # (P, C, T)
         for i in range(self.num_layers):
-            x = F.relu(getattr(self, f"conv_{i}")(x))
-        return self.heads(x.transpose(1, 2), frame_valid)
+            x = self.conv_layer(i, F.pad(x, (0, 0, self.halo, self.halo)))
+        return self.heads(x, frame_valid)
+
+    def conv_layer(self, i: int, xp):
+        """Layer i (convolution, relu) over (P, S + 2 * halo, C) frames,
+        zeros or the neighbouring frames around the S -> (P, S, C)."""
+        conv = getattr(self, f"conv_{i}")
+        y = F.conv1d(xp.transpose(1, 2), conv.weight, conv.bias)
+        return F.relu(y).transpose(1, 2)
 
 
 class RelationModel(nn.Module):
@@ -238,8 +277,7 @@ class RelationModel(nn.Module):
 
     def predict(self, pair_feats, frame_valid=None):
         if self.pair_interaction:
-            s, o = torch.chunk(pair_feats, 2, dim=-1)
-            pair_feats = torch.cat([pair_feats, s - o, s * o], dim=-1)
+            pair_feats = pair_interaction_feats(pair_feats)
         return self.temporal(pair_feats, frame_valid)
 
     def forward(self, feats, pair_feats=None, tube_valid=None,

@@ -17,8 +17,13 @@ form whose BN affines were folded into the convs by ``fold_frozen_bn``.
 With ``train=True``, 'sync_bn' normalizes by the batch statistics over
 (N, H, W) and updates the running statistics as flax does (momentum 0.9,
 the *biased* batch variance); 'frozen_bn' keeps its running statistics in
-training too. One device means no cross-replica reduction (the JAX trainer
-runs ``axis_name=None``).
+training too. The JAX trainer runs ``axis_name=None`` under ``pjit``, so
+its batch statistics are those of the global batch; the port's 'sync_bn'
+gets them across ranks from a process group (``set_process_group``): the
+counts, means and squared deviations of each rank's batch are combined in
+float64, and its backward all-reduces the sums of dy and dy * x_hat, so
+every rank's gradient is that of the global batch (``_SyncBatchNorm``;
+``torch.nn.SyncBatchNorm`` refuses CPU tensors).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from openpvsg_torch.models.layers import Conv
+from openpvsg_torch.parallel.mesh import all_reduce_sum
 
 # 26 = one bottleneck per stage (test/debug scale)
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 26: (1, 1, 1, 1), 34: (3, 4, 6, 3),
@@ -37,6 +43,75 @@ STAGE_BLOCKS = {18: (2, 2, 2, 2), 26: (1, 1, 1, 1), 34: (3, 4, 6, 3),
 BASIC_DEPTHS = (18, 34)
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax: ra = momentum * ra + (1 - momentum) * batch
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Batch normalization over the batch of every rank of ``group``: x
+    (N, C, H, W) -> (y, mean, biased var). Each rank takes its batch's
+    mean and 1 / std as the one-device path does; the counts and the
+    count-weighted first and second moments are summed over the ranks in
+    float64 (one all-reduce), which a float32 variance survives. Backward: dx = w * rstd
+    * (dy - mean(dy) - x_hat * mean(dy * x_hat)) with the means over the
+    global batch; the weight and bias gradients stay per rank, for the
+    trainer's gradient all-reduce to sum. On the GPU the per-rank sums and
+    the elementwise passes are the kernels of torch's own SyncBatchNorm
+    (those of the one-device training BatchNorm), so a group of one
+    normalizes as one device does; on the CPU, where they do not exist,
+    the same formulas run as plain ops."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group):
+        C = x.shape[1]
+        view = (1, C, 1, 1)
+        n_local = x.numel() // C
+        if x.is_cuda:
+            mean_l, rstd_l = torch.batch_norm_stats(x, BN_EPS)
+        else:
+            _, mean_l, rstd_l = torch.native_batch_norm(x, None, None, None, None, True,
+                                                        0.0, BN_EPS)
+        mean_l, var_l = mean_l.double(), rstd_l.double().pow(-2) - BN_EPS
+        # one all-reduce of the counts and the first and second moments
+        sums = torch.cat([mean_l.new_full((1,), n_local), n_local * mean_l,
+                          n_local * (var_l + mean_l * mean_l)])
+        all_reduce_sum([sums], group)
+        n = sums[0]
+        mean = sums[1:C + 1] / n
+        var = (sums[C + 1:] / n - mean * mean).clamp(min=0.0)
+        rstd = torch.rsqrt(var + BN_EPS).to(rstd_l.dtype)
+        mean, var = mean.to(rstd_l.dtype), var.to(rstd_l.dtype)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        if x.is_cuda:
+            ctx.save_for_backward(x, weight, mean, rstd, n.to(torch.int32).reshape(1))
+            return torch.batch_norm_elemt(x, weight, bias, mean, rstd, BN_EPS), mean, var
+        x_hat = (x - mean.view(view).to(x.dtype)) * rstd.view(view).to(x.dtype)
+        ctx.save_for_backward(x_hat, weight, rstd.to(x.dtype), n.to(x.dtype))
+        return x_hat * weight.view(view) + bias.view(view), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        if dy.is_cuda:
+            x, weight, mean, rstd, count = ctx.saved_tensors
+            sum_dy, sum_dy_xmu, grad_w, grad_b = torch.batch_norm_backward_reduce(
+                dy, x, mean, rstd, weight, True, True, True)
+            C = sum_dy.numel()
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            all_reduce_sum([sums], ctx.group)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, rstd, weight, sums[:C],
+                                                 sums[C:], count)
+            return dx, grad_w, grad_b, None
+        x_hat, weight, rstd, n = ctx.saved_tensors
+        C = x_hat.shape[1]
+        dims = (0, 2, 3)
+        view = (1, C, 1, 1)
+        sum_dy = dy.sum(dims)
+        sum_dy_xhat = (dy * x_hat).sum(dims)
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        all_reduce_sum([sums], ctx.group)
+        mean_dy, mean_dy_xhat = (sums / n).split(C)
+        dx = (weight * rstd).view(view) * (dy - mean_dy.view(view)
+                                           - x_hat * mean_dy_xhat.view(view))
+        return dx, sum_dy_xhat, sum_dy, None
 
 
 class BatchNorm(nn.Module):
@@ -56,6 +131,7 @@ class BatchNorm(nn.Module):
     statistics stay float32."""
 
     compute_dtype = None
+    group = None  # a torch.distributed process group: statistics over its ranks
 
     def __init__(self, channels: int, batch_stats: bool = False):
         super().__init__()
@@ -75,15 +151,27 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=BN_EPS)
-        # running statistics None: normalize by the batch and return its mean
-        # and 1 / sqrt(biased var + eps), from the one pass over x
-        y, mean, rstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+        if self.group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.group)
+        else:
+            # running statistics None: normalize by the batch and return its
+            # mean and 1 / sqrt(biased var + eps), from the one pass over x
+            y, mean, rstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+            with torch.no_grad():
+                var = rstd.pow(-2) - BN_EPS
         with torch.no_grad():
-            var = rstd.pow(-2) - BN_EPS
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return y
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Reduce the batch statistics of every training-mode BatchNorm of
+    ``model`` over ``group`` (None: this process's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class Norm(nn.Module):

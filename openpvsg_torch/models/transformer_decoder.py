@@ -35,13 +35,20 @@ class MultiheadAttention(nn.Module):
         self.out_proj = Dense(dim, dim)
 
     def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
+        return self.attend(self.q_proj(q), self.k_proj(k), self.v_proj(v), mask)
+
+    def attend(self, qp, kp, vp, mask: Optional[torch.Tensor] = None):
+        """The attention of projected queries (B, Lq, dim), keys and values
+        (B, Lk, dim), then the output projection: a caller that projects
+        the keys and values of several shards and gathers them (the
+        time-sharded relation head) calls this."""
         H = self.num_heads
         hd = self.dim // H
-        B, Lq, _ = q.shape
-        Lk = k.shape[1]
-        qp = self.q_proj(q).reshape(B, Lq, H, hd).float()
-        kp = self.k_proj(k).reshape(B, Lk, H, hd).float()
-        vp = self.v_proj(v).reshape(B, Lk, H, hd)
+        B, Lq, _ = qp.shape
+        Lk = kp.shape[1]
+        qp = qp.reshape(B, Lq, H, hd).float()
+        kp = kp.reshape(B, Lk, H, hd).float()
+        vp = vp.reshape(B, Lk, H, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", qp, kp) / math.sqrt(hd)
         if mask is not None:
             if mask.dim() == 3:  # (B, Lq, Lk) -> broadcast over heads

@@ -38,6 +38,23 @@ def uniform_draw(generator: torch.Generator) -> Draw:
                                     device=generator.device)
 
 
+def rank_draw(draw: Draw, rank: int, world: int) -> Draw:
+    """The draws of one rank's contiguous block of a global batch split over
+    ``world`` ranks: each call draws the global batch's shape from ``draw``
+    and keeps this rank's slice, so the ranks together use exactly the
+    draws one process makes on the global batch. The batch axis is 1 of the
+    assignment's (L, B, P, 2) draw and 0 of a layer's (B * Q, k, 2) ones
+    (items major)."""
+    def sliced(shape):
+        axis = 1 if len(shape) == 4 else 0
+        full = list(shape)
+        full[axis] *= world
+        n = shape[axis]
+        return draw(tuple(full)).narrow(axis, rank * n, n).contiguous()
+
+    return sliced
+
+
 def _sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """img (N, C, H, W), grid (N, P, 2) in [-1, 1] (x, y) -> (N, C, P), in
     float32 (float64 for float64 images)."""

@@ -23,11 +23,16 @@ segmenter runs in bfloat16 on the GPU and in float32 on the CPU
 (``--device cpu``); the relation head and the tracker's device work in
 IEEE float32. ``--eval`` matches the predicted tubes to the GT tubes
 (stage 3, ``run_rel_set``) and runs the mask-grounded protocol
-(``evaluate_full``) into ``{out_dir}/protocol_metrics.json``. One process
-on one device (the JAX tool's mesh and multi-process flags are ROADMAP.md
-A13). The run ends with a ``summary:`` log line: per-video frames, tubes,
-triplets and seconds (segment and relation), the protocol metrics, peak
-device memory and the kernel launch counts.
+(``evaluate_full``) into ``{out_dir}/protocol_metrics.json``. With two or
+more GPUs visible (and no ``--device``) they form a ``(data, time)`` mesh
+(``--n-time`` sizes 'time'): the segmenter splits each batch's frames over
+'data' and the relation head runs as ``TimeShardedRelation``. A
+multi-process run (``--dist-*``) strides the videos over the ranks into the
+shared ``--out-dir``; with ``--eval`` every rank matches its own videos and
+rank 0, after a barrier, scores them all. The run ends with a ``summary:``
+log line: per-video frames, tubes, triplets and seconds (segment and
+relation), the protocol metrics, peak device memory and the kernel launch
+counts.
 """
 from __future__ import annotations
 
@@ -41,19 +46,23 @@ import numpy as np
 from openpvsg_torch.tools.common import (base_parser, kernel_launches,
                                          load_config, load_relation_params,
                                          log_summary, make_relation_executor,
-                                         partition_videos, setup_logging)
+                                         maybe_mesh, partition_videos,
+                                         setup_logging)
 
 
 def relation_triplets(model, tubes, num_frames: int, num_top_pairs: int,
-                      relation_names):
+                      relation_names, executor=None):
     """The ranked triplets of one video's tubes in the JAX tool's schema,
-    from ``evaluate_video`` over the stacked (N, T, D) tube features."""
+    from ``evaluate_video`` over the stacked (N, T, D) tube features (over
+    the ``executor``'s mesh when given)."""
     from openpvsg_torch.eval.rel_eval import evaluate_video
 
     feats = np.stack([t.as_array(num_frames)[0] for t in tubes]).astype(np.float32)
     tube_ids = [t.track_id for t in tubes]
     triplets = []
-    for r in evaluate_video(model, feats, num_top_pairs, pairwise=False)[1][:num_top_pairs]:
+    ranked = evaluate_video(model, feats, num_top_pairs, pairwise=False,
+                            executor=executor)[1]
+    for r in ranked[:num_top_pairs]:
         spans = np.flatnonzero(r["relation_span"])
         triplets.append({
             "subject_tube": tube_ids[r["subject_index"]],
@@ -84,7 +93,6 @@ def main(argv=None):
                              "masks + relations for the split)")
     args = parser.parse_args(argv)
     cfg = load_config(args)
-    executor = make_relation_executor(args)
 
     import torch
 
@@ -96,7 +104,8 @@ def main(argv=None):
     from openpvsg_torch.train.checkpoint import load_model_state
     from openpvsg_torch.weights import random_relation_state_dict, random_state_dict
 
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args.device, n_time=args.n_time)
+    device = mesh.first if mesh is not None else resolve_device(args.device)
     out_dir = args.out_dir or os.path.join(cfg.data.work_dir, "end2end")
     logger = setup_logging(out_dir, "end2end")
     launches_before = kernel_launches()
@@ -111,7 +120,10 @@ def main(argv=None):
         state = random_state_dict(cfg.model, args.seed)
         logger.warning("no segmenter checkpoint: random weights")
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    seg = SegmenterInference(cfg.model, state, dtype=dtype, device=device)
+    seg = SegmenterInference(cfg.model, state, dtype=dtype, device=device,
+                             mesh=mesh)
+    if mesh is not None:
+        logger.info(f"frame-sharded inference over {mesh.shape['data']} devices")
 
     # --- relation head (--set relation.* gives its capacity)
     rel_cfg = dataclasses.replace(cfg.relation, model_name=args.model_name)
@@ -123,6 +135,9 @@ def main(argv=None):
         rel_model.load_state_dict(random_relation_state_dict(rel_cfg, args.seed + 2))
         rel_model = rel_model.to(device).eval()
         logger.warning("no relation checkpoint: random weights")
+    # relation scoring over the mesh too: pairs split over 'data', frames
+    # over 'time'
+    executor = make_relation_executor(mesh, rel_model)
 
     app_state = None
     if args.ps_type == "ips":
@@ -170,7 +185,7 @@ def main(argv=None):
             logger.info(f"{vid}: no tubes")
             continue
         triplets = relation_triplets(rel_model, tubes, T, args.num_top_pairs,
-                                     anno.relations)
+                                     anno.relations, executor)
         with open(os.path.join(save_root, "triplets.json"), "w") as f:
             json.dump(triplets, f, indent=1)
         t_total = time.perf_counter() - t0
@@ -195,11 +210,13 @@ def _run_protocol_eval(args, cfg, videos, out_dir, rel_model, executor, logger):
     matching (``run_rel_set``) per video, then the ``rel_test_full`` metrics
     (reference: tools/rel_test_full.py:96-241). Returns the metrics written
     to ``protocol_metrics.json``, or None when no video kept a relation
-    set."""
+    set or on a rank other than 0 (each rank matches its own videos; rank 0
+    scores them all after a barrier)."""
     from openpvsg_torch.data.datasets import PVSGRelationDataset
     from openpvsg_torch.data.pvsg import PVSGRelationAnnotation, frame_paths
     from openpvsg_torch.eval.rel_full_eval import evaluate_full
     from openpvsg_torch.infer import stages
+    from openpvsg_torch.parallel.mesh import rank, world
 
     rel_anno = PVSGRelationAnnotation(cfg.data.anno_file, args.split)
     matched = 0
@@ -210,6 +227,12 @@ def _run_protocol_eval(args, cfg, videos, out_dir, rel_model, executor, logger):
         if stages.run_rel_set(vid, out_dir, rel_anno, cfg.data.data_dir):
             matched += 1
     logger.info(f"--eval: GT-matched tubes for {matched} video(s)")
+    if world() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+        if rank() != 0:
+            return None
 
     ds = PVSGRelationDataset(cfg.data.anno_file, args.split, out_dir,
                              return_mask=True)

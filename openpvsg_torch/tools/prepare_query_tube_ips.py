@@ -23,9 +23,9 @@ import os
 import time
 
 from openpvsg_torch.tools.common import (base_parser, kernel_launches,
-                                         load_config, log_summary,
-                                         partition_videos, reject_unused_n_time,
-                                         setup_logging)
+                                         load_config, log_summary, maybe_mesh,
+                                         partition_videos,
+                                         reject_unused_n_time, setup_logging)
 
 
 def load_torch_state_dict(path: str):
@@ -85,9 +85,13 @@ def main(argv=None):
     else:
         app_state = random_appearance_state_dict(cfg.tracker, 1)
         logger.warning("no appearance checkpoint: random weights")
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args.device)
+    device = mesh.first if mesh is not None else resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    seg = SegmenterInference(cfg.model, state, dtype=dtype, device=device)
+    seg = SegmenterInference(cfg.model, state, dtype=dtype, device=device,
+                             mesh=mesh)
+    if mesh is not None:
+        logger.info(f"frame-sharded inference over {mesh.shape['data']} devices")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 

@@ -9,8 +9,9 @@ R@K / mR@K on the ``relations.pickle`` GT of a split.
 ``--checkpoint`` is an ``epoch_N`` file of the port's ``rel_train`` or the
 reference's four-model relation ``.pth`` bundle; ``--set relation.*``
 gives the model's capacity. The printed lines are the JAX tool's. The model
-runs on the GPU unless ``--device cpu``, on one device (the JAX tool's
-``--n-time`` mesh is ROADMAP.md A13). The run ends with a ``summary:`` log
+runs on the GPU unless ``--device cpu``; with two or more GPUs visible (and
+no ``--device``) as ``TimeShardedRelation`` over a ``(data, time)`` mesh of
+them, ``--n-time`` sizing 'time'. The run ends with a ``summary:`` log
 line: the metrics, seconds and the kernel launch counts (none).
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ import time
 from openpvsg_torch.tools.common import (base_parser, kernel_launches,
                                          load_config, load_relation_params,
                                          log_summary, make_relation_executor,
-                                         setup_logging)
+                                         maybe_mesh, setup_logging)
 
 
 def main(argv=None):
@@ -32,13 +33,13 @@ def main(argv=None):
     parser.add_argument("--num-top-pairs", type=int, default=100)
     args = parser.parse_args(argv)
     cfg = load_config(args)
-    executor = make_relation_executor(args)
 
     from openpvsg_torch.data.datasets import PVSGRelationDataset
     from openpvsg_torch.eval.rel_eval import evaluate
     from openpvsg_torch.infer.segmenter import resolve_device
 
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args.device, n_time=args.n_time)
+    device = mesh.first if mesh is not None else resolve_device(args.device)
 
     work_dir = os.path.join(cfg.data.work_dir, f"{args.split}_save_qf")
     logger = setup_logging(os.path.dirname(args.checkpoint) or ".", "rel_test")
@@ -46,6 +47,10 @@ def main(argv=None):
     ds = PVSGRelationDataset(cfg.data.anno_file, args.split, work_dir)
     model = load_relation_params(args.checkpoint, args.model_name, device,
                                  cfg.relation)
+    executor = make_relation_executor(mesh, model)
+    if executor is not None:
+        logger.info(f"relation scoring on a (data={mesh.shape['data']}, "
+                    f"time={mesh.shape['time']}) mesh")
     t0 = time.perf_counter()
     metrics = evaluate(model, (ds[i] for i in range(len(ds))),
                        args.num_top_pairs, ds.relations, executor=executor)

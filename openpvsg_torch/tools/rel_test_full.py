@@ -19,7 +19,7 @@ import time
 from openpvsg_torch.tools.common import (base_parser, kernel_launches,
                                          load_config, load_relation_params,
                                          log_summary, make_relation_executor,
-                                         setup_logging)
+                                         maybe_mesh, setup_logging)
 
 
 def main(argv=None):
@@ -31,14 +31,14 @@ def main(argv=None):
     parser.add_argument("--mark", default="standard")
     args = parser.parse_args(argv)
     cfg = load_config(args)
-    executor = make_relation_executor(args)
 
     from openpvsg_torch.data.datasets import PVSGRelationDataset
     from openpvsg_torch.data.pvsg import PVSGRelationAnnotation
     from openpvsg_torch.eval.rel_full_eval import evaluate_full, save_metrics_to_csv
     from openpvsg_torch.infer.segmenter import resolve_device
 
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args.device, n_time=args.n_time)
+    device = mesh.first if mesh is not None else resolve_device(args.device)
 
     work_dir = os.path.join(cfg.data.work_dir, f"{args.split}_save_qf")
     csv_path = os.path.join(cfg.data.work_dir, "relation", "main_results.csv")
@@ -50,6 +50,10 @@ def main(argv=None):
     anno = PVSGRelationAnnotation(cfg.data.anno_file, args.split)
     model = load_relation_params(args.checkpoint, args.model_name, device,
                                  cfg.relation)
+    executor = make_relation_executor(mesh, model)
+    if executor is not None:
+        logger.info(f"relation scoring on a (data={mesh.shape['data']}, "
+                    f"time={mesh.shape['time']}) mesh")
     t0 = time.perf_counter()
     out = evaluate_full(model, (ds[i] for i in range(len(ds))), anno,
                         cfg.data.data_dir, args.num_top_pairs, executor=executor)

@@ -12,9 +12,12 @@ permutes the videos each epoch, and ``RelationTrainer(cfg, counts,
 rng_seed=seed)`` draws the subsampling from the same seed. Checkpoints are
 the port's own files ``{work_dir}/relation/rel_{ps}_{model}_lr{lr}/epoch_N``
 (``train/checkpoint.py:save_relation_checkpoint``), beside the
-``result.csv`` of each epoch's proxy metrics. Training runs on one device
-(the GPU unless ``--device cpu``); with more cards visible it still trains
-on one (data parallelism is ROADMAP.md A13). The run ends with a
+``result.csv`` of each epoch's proxy metrics. Training runs on the GPU
+unless ``--device cpu``; with two or more GPUs visible (and no
+``--device``) the accumulation is spread over them
+(``DataParallelRelationTrainer``: one replica per GPU, same-bucket videos
+in parallel, the gradients summed; the JAX tool's ``maybe_mesh``). The run
+ends with a
 ``summary:`` log line: videos, steps, each epoch's data order, the
 seconds of each step, the losses, the last epoch's proxy metrics, peak
 device memory and the kernel launch counts (none).
@@ -28,7 +31,7 @@ import time
 import numpy as np
 
 from openpvsg_torch.tools.common import (base_parser, kernel_launches,
-                                         load_config, log_summary,
+                                         load_config, log_summary, maybe_mesh,
                                          reject_unused_n_time, setup_logging)
 
 
@@ -62,9 +65,11 @@ def main(argv=None):
     from openpvsg_torch.eval.rel_full_eval import save_metrics_to_csv
     from openpvsg_torch.infer.segmenter import resolve_device
     from openpvsg_torch.train.checkpoint import save_relation_checkpoint
-    from openpvsg_torch.train.relation import RelationTrainer
+    from openpvsg_torch.train.relation import (DataParallelRelationTrainer,
+                                               RelationTrainer)
 
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args.device)
+    device = mesh.first if mesh is not None else resolve_device(args.device)
 
     work_dir = os.path.join(cfg.data.work_dir, "train_save_qf")
     work_dir_eval = os.path.join(cfg.data.work_dir, "val_save_qf")
@@ -81,17 +86,20 @@ def main(argv=None):
     relation_count = relation_counts(train_ds, rel_cfg.num_relations)
 
     if device.type == "cuda":
-        if torch.cuda.device_count() > 1:
-            logger.info(f"{torch.cuda.device_count()} GPUs visible: training "
-                        f"on {device} alone (relation data parallelism is "
-                        "ROADMAP.md A13)")
         torch.cuda.reset_peak_memory_stats(device)
-    trainer = RelationTrainer(rel_cfg, relation_count, rng_seed=args.seed,
-                              device=device)
+    if mesh is not None:
+        logger.info(f"data-parallel relation training over "
+                    f"{mesh.shape['data']} devices")
+        trainer = DataParallelRelationTrainer(rel_cfg, relation_count, mesh,
+                                              rng_seed=args.seed)
+    else:
+        trainer = RelationTrainer(rel_cfg, relation_count, rng_seed=args.seed,
+                                  device=device)
     rng = np.random.default_rng(args.seed)
     epochs = args.epochs or rel_cfg.epochs
 
     summary = {"device": str(device), "model": rel_cfg.model_name,
+               "data_parallel": 1 if mesh is None else mesh.shape["data"],
                "videos": len(train_ds), "epochs": epochs, "steps": 0,
                "order": [], "losses": [], "step_seconds_each": [],
                "eval_seconds": [], "checkpoints": []}

@@ -26,7 +26,8 @@ import numpy as np
 
 from openpvsg_torch.tools.common import (base_parser, collect_rank_results,
                                          kernel_launches, load_config,
-                                         log_summary, partition_videos,
+                                         log_summary, maybe_mesh,
+                                         partition_videos,
                                          reject_unused_n_time, setup_logging)
 
 
@@ -65,9 +66,13 @@ def main(argv=None):
     else:
         state = random_state_dict(cfg.model, 0)
         logger.warning("no checkpoint given: evaluating random weights")
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args.device)
+    device = mesh.first if mesh is not None else resolve_device(args.device)
     infer_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    seg = SegmenterInference(cfg.model, state, dtype=infer_dtype, device=device)
+    seg = SegmenterInference(cfg.model, state, dtype=infer_dtype, device=device,
+                             mesh=mesh)
+    if mesh is not None:
+        logger.info(f"frame-sharded inference over {mesh.shape['data']} devices")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     summary = {"device": str(device), "dtype": str(infer_dtype).split(".")[-1]}
@@ -98,14 +103,16 @@ def main(argv=None):
                 dataset.num_classes)["gt_panoptic_seg"] for p in masks]
             score_s += time.perf_counter() - t_score
             pred_seq = []
-            # one window per forward on one device; two in flight
-            offsets = list(range(0, len(frames), window))
+            # one window per replica of the mesh in each forward (one on one
+            # device; the same outputs either way); two batches in flight
+            wpb = mesh.shape["data"] if mesh is not None else 1
+            offsets = list(range(0, len(frames), window * wpb))
             pending, next_i = deque(), 0
             while next_i < len(offsets) or pending:
                 while next_i < len(offsets) and len(pending) < 2:
                     lo = offsets[next_i]
                     raw = np.stack([load_frame(p)
-                                    for p in frames[lo:lo + window]])
+                                    for p in frames[lo:lo + window * wpb]])
                     pending.append(seg.infer_windows_vps_async(raw))
                     next_i += 1
                 outs = seg.finish_windows_vps(pending.popleft(), window)
@@ -128,7 +135,7 @@ def main(argv=None):
                        vpq_scoring_seconds=score_s)
         parts = collect_rank_results(work_dir, "vpq", (totals, n_vids))
         totals, n_vids = {}, 0
-        for t, n in parts:
+        for t, n in parts or ():  # None on a rank other than 0
             n_vids += n
             for k, v in t.items():
                 totals[k] = totals.get(k, 0.0) + v
@@ -176,6 +183,11 @@ def main(argv=None):
         presum = [np.sum([s[j] for s in stats], axis=0) for j in range(4)] \
             if stats else None
         parts = collect_rank_results(work_dir, "pq_stats", presum)
+        if parts is None:  # a rank other than 0
+            summary.update(peak_gib=_peak_gib(torch, device),
+                           launches=kernel_launches(since=launches_before))
+            log_summary(logger, summary)
+            return summary
         metrics = pq_summary([p for p in parts if p is not None],
                              len(dataset.anno.thing_classes),
                              len(dataset.anno.stuff_classes))

@@ -1,13 +1,19 @@
 """Segmenter training CLI, after ``tools/train.py`` (reference:
 tools/train.py): trains Mask2Former IPS (per-frame) or VPS (2-frame clips)
 with the reference's recipe (AdamW parameter groups, grad clip 0.01, step
-LR, 8 epochs) on one device.
+LR, 8 epochs) on one device, or in lockstep over the ranks of a
+multi-process run (``--dist-*``, one device each).
 
   python -m openpvsg_torch.tools.train --config mask2former_vps \\
       --data-dir data --anno-file data/pvsg.json --work-dir work_dirs
 
-The global batch is ``max(train.samples_per_gpu // 4, 1)`` samples on the
-one device, as the JAX tool's rule gives on one device. The seeds and the
+The global batch is ``max(train.samples_per_gpu // 4, world)`` samples,
+rounded down to a multiple of the world size (the JAX tool's rule over its
+devices); every rank draws the same global batches and computes on its
+contiguous block of each (``SegmenterTrainer(process_group=...)``), and
+only rank 0 writes ``config.json`` and the checkpoints. ``--diff-seed``
+offsets the data seed (the order and the packed sampler) by the rank, as
+the reference's ``--diff_seed``. The seeds and the
 data-order stream are the JAX tool's: ``numpy.random.default_rng(seed)``
 permutes the samples each epoch, and a resumed run draws the skipped
 epochs' permutations first. Augmentation draws come from one
@@ -50,8 +56,8 @@ def main(argv=None):
     parser.add_argument("--max-instances", type=int, default=40)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--diff-seed", action="store_true",
-                        help="not ported: offsets the seed by the process "
-                             "index of a multi-process run (ROADMAP.md A13)")
+                        help="offset the data seed by the process index "
+                             "(reference: tools/train.py --diff_seed)")
     parser.add_argument("--deterministic", action="store_true",
                         help="torch.use_deterministic_algorithms(True), "
                              "warning (not raising) at an operation without "
@@ -69,13 +75,10 @@ def main(argv=None):
                              "of decoding PNGs per step; batches ship uint8")
     args = parser.parse_args(argv)
     reject_unused_n_time(args)
-    if args.diff_seed:
-        raise NotImplementedError(
-            "--diff-seed offsets the seed per process of a multi-process "
-            "run, which is not ported (ROADMAP.md A13)")
-    cfg = load_config(args)
+    cfg = load_config(args, lockstep=True)
 
     import torch
+    import torch.distributed as dist
 
     from openpvsg_torch.config import (apply_overrides, check_training_config,
                                        save_config)
@@ -84,6 +87,7 @@ def main(argv=None):
     from openpvsg_torch.data.masks import decode_palette_mask
     from openpvsg_torch.data.pipeline import (TrainAugmentor, pad_to_divisor,
                                               preprocess_clip)
+    from openpvsg_torch.parallel.mesh import rank, world
     from openpvsg_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from openpvsg_torch.train.segmenter import SegmenterTrainer, pad_targets
     from openpvsg_torch.utils.logging import MetricsLogger
@@ -99,7 +103,8 @@ def main(argv=None):
 
     work_dir = os.path.join(cfg.data.work_dir, cfg.name)
     logger = setup_logging(work_dir, "train")
-    seed = cfg.train.seed
+    group = dist.group.WORLD if dist.is_initialized() else None
+    seed = cfg.train.seed + (rank() if args.diff_seed else 0)  # the data seed
     rng = np.random.default_rng(seed)
     random.seed(seed)
 
@@ -127,7 +132,9 @@ def main(argv=None):
         n_samples = len(dataset)
         logger.info(f"dataset: {n_samples} samples; clip T={T}")
 
-    batch = max(cfg.train.samples_per_gpu // 4, 1)  # global batch, one device
+    n_ranks = world()
+    batch = max(cfg.train.samples_per_gpu // 4, n_ranks)  # the global batch
+    batch = (batch // n_ranks) * n_ranks
     steps_per_epoch = max(n_samples // batch, 1)
     epochs = args.epochs or cfg.train.epochs
     if args.auto_scale_lr:
@@ -135,14 +142,18 @@ def main(argv=None):
         cfg = apply_overrides(cfg, {"train.lr": scaled})
         logger.info(f"auto-scale-lr: lr -> {scaled:g} (batch {batch} / 16)")
 
-    # the resolved config; the other tools take it as --config <path>
-    save_config(cfg, os.path.join(work_dir, "config.json"))
+    # the resolved config; the other tools take it as --config <path>. Rank
+    # 0 only: the ranks share work_dir, and a rewrite could expose a partial
+    # file to a reader
+    if rank() == 0:
+        save_config(cfg, os.path.join(work_dir, "config.json"))
 
     trainer = SegmenterTrainer(cfg.model, cfg.train,
                                steps_per_epoch=steps_per_epoch,
-                               device=args.device, seed=seed,
+                               device=args.device, seed=cfg.train.seed,
                                norm_mean=tuple(cfg.data.mean),
-                               norm_std=tuple(cfg.data.std))
+                               norm_std=tuple(cfg.data.std),
+                               process_group=group)
     resume_path = args.resume_from
     if resume_path is None and args.auto_resume:
         resume_path = latest_checkpoint(work_dir)
@@ -156,7 +167,7 @@ def main(argv=None):
         logger.info(f"resumed from {resume_path} "
                     f"(step {trainer.step_count}, epoch {start_epoch})")
 
-    aug = TrainAugmentor(cfg.data, seed)
+    aug = TrainAugmentor(cfg.data, cfg.train.seed)
     oh, ow = cfg.data.train_scale
 
     def make_sample(idx: int):
@@ -246,12 +257,13 @@ def main(argv=None):
         epoch_rows.append(row)
         logger.info(f"epoch {epoch}: {n_steps} steps in {row['seconds']:.2f} s, "
                     f"{wait_s:.2f} s waiting for the loader")
-        if (epoch + 1) % cfg.train.checkpoint_interval == 0:
+        if (epoch + 1) % cfg.train.checkpoint_interval == 0 and rank() == 0:
             ckpt = os.path.join(work_dir, f"epoch_{epoch + 1}")
             save_checkpoint(ckpt, trainer)
             logger.info(f"saved {ckpt}")
     summary = {"start_epoch": start_epoch, "epochs": epoch_rows,
-               "global_batch": batch, "frames_per_sample": T,
+               "global_batch": batch, "rank": rank(), "world": n_ranks,
+               "frames_per_sample": T,
                "steps": trainer.step_count, "losses": losses,
                "peak_gib": (torch.cuda.max_memory_allocated(trainer.device) / 2 ** 30
                             if on_cuda else None),

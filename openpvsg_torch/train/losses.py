@@ -24,10 +24,17 @@ costs. Options: the sigmoid focal classification loss in place of the
 softmax one, and the semantic head's per-pixel cross entropy when the
 batch carries ``gt_semantic``. bfloat16 mask logits (``mask_logits_dtype``)
 are widened to float32 in the loss, and every reduction runs in float32.
+
+Over several ranks (``global_sum``, the trainer's all-reduce) each rank
+computes the loss of its block of the global batch with the global
+normalizers, as JAX's sharded step does (``losses.py:8-17,254``):
+``num_total_masks``, the class loss's ``avg_factor``, the focal loss's
+foreground count and the semantic loss's pixel count are summed over the
+ranks, so the ranks' losses add up to the global batch's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,17 +57,27 @@ def gather_targets(assigned: torch.Tensor, gt_labels: torch.Tensor,
     return labels, tgt_masks, pos
 
 
+GlobalSum = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _global(t: torch.Tensor, global_sum: Optional[GlobalSum]) -> torch.Tensor:
+    """A normalizer summed over the ranks (``t`` itself on one)."""
+    return t if global_sum is None else global_sum(t)
+
+
 def softmax_cls_loss(cls_pred: torch.Tensor, labels: torch.Tensor,
                      num_classes: int, cls_weight: float = 2.0,
-                     bg_cls_weight: float = 0.1) -> torch.Tensor:
+                     bg_cls_weight: float = 0.1,
+                     global_sum: Optional[GlobalSum] = None) -> torch.Tensor:
     """Softmax CE with down-weighted background class; avg_factor is the
-    summed class weight (mmdet CrossEntropyLoss semantics)."""
+    summed class weight (mmdet CrossEntropyLoss semantics), over every rank
+    with ``global_sum``."""
     class_weight = torch.ones(num_classes + 1, device=cls_pred.device)
     class_weight[num_classes] = bg_cls_weight
     logp = F.log_softmax(cls_pred.float(), dim=-1)
     ce = -logp.gather(-1, labels[..., None])[..., 0]
     w = class_weight[labels]
-    return cls_weight * (ce * w).sum() / w.sum().clamp(min=1e-6)
+    return cls_weight * (ce * w).sum() / _global(w.sum(), global_sum).clamp(min=1e-6)
 
 
 def mask2former_layer_loss(cls_pred, mask_pred, labels, tgt_masks, pos,
@@ -70,7 +87,9 @@ def mask2former_layer_loss(cls_pred, mask_pred, labels, tgt_masks, pos,
                            bg_cls_weight: float = 0.1, num_points: int = 0,
                            oversample_ratio: float = 3.0,
                            importance_sample_ratio: float = 0.75,
-                           draw: Optional[Draw] = None) -> Dict[str, torch.Tensor]:
+                           draw: Optional[Draw] = None,
+                           global_sum: Optional[GlobalSum] = None
+                           ) -> Dict[str, torch.Tensor]:
     """One decoder layer: cls_pred (B, Q, K+1), mask_pred (B, Q, T, H, W),
     tgt_masks (B, Q, T, Hm, Wm), labels and pos (B, Q). Dense
     (``num_points`` 0) needs Hm, Wm = H, W; points mode samples both in
@@ -78,7 +97,7 @@ def mask2former_layer_loss(cls_pred, mask_pred, labels, tgt_masks, pos,
     ``uncertainty_sampled_points``."""
     B, Q = labels.shape
     loss_cls = softmax_cls_loss(cls_pred, labels, num_classes, cls_weight,
-                                bg_cls_weight)
+                                bg_cls_weight, global_sum)
     if num_points > 0:
         if draw is None:
             raise ValueError("points mode (num_points > 0) needs a draw")
@@ -149,7 +168,8 @@ def dense_mask_losses_target_layout(assigned, mask_pred, gt_masks, gt_valid,
 
 def focal_cls_loss(cls_pred: torch.Tensor, labels: torch.Tensor,
                    num_classes: int, gamma: float = 2.0, alpha: float = 0.25,
-                   weight: float = 2.0) -> torch.Tensor:
+                   weight: float = 2.0,
+                   global_sum: Optional[GlobalSum] = None) -> torch.Tensor:
     """Sigmoid focal classification loss over the K foreground logits;
     background is the all-zero one-hot, and the sum is divided by the
     number of foreground labels (at least 1) (``focal_cls_loss``,
@@ -161,18 +181,22 @@ def focal_cls_loss(cls_pred: torch.Tensor, labels: torch.Tensor,
     p_t = p * onehot + (1 - p) * (1 - onehot)
     a_t = alpha * onehot + (1 - alpha) * (1 - onehot)
     loss = a_t * ((1 - p_t) ** gamma) * ce
-    num_pos = (labels != num_classes).sum().to(logits.dtype).clamp(min=1.0)
+    num_pos = _global((labels != num_classes).sum().to(logits.dtype),
+                      global_sum).clamp(min=1.0)
     return weight * loss.sum() / num_pos
 
 
 def sem_seg_loss(sem_seg_logits: torch.Tensor, gt_semantic: torch.Tensor,
-                 weight: float = 1.0) -> torch.Tensor:
+                 weight: float = 1.0,
+                 global_sum: Optional[GlobalSum] = None) -> torch.Tensor:
     """Per-pixel softmax cross entropy of the semantic head: logits (B, T,
     H, W, K+1), gt_semantic (B, T, H, W) class ids; mean over pixels
     (``mask2former_loss``, ``losses.py:312-317``)."""
     logp = F.log_softmax(_wide(sem_seg_logits), dim=-1)
     ce = -logp.gather(-1, gt_semantic.long()[..., None])[..., 0]
-    return weight * ce.mean()
+    if global_sum is None:
+        return weight * ce.mean()
+    return weight * ce.sum() / global_sum(ce.new_full((), ce.numel()))
 
 
 def mask2former_loss(cls_preds: torch.Tensor, mask_preds: torch.Tensor,
@@ -190,7 +214,8 @@ def mask2former_loss(cls_preds: torch.Tensor, mask_preds: torch.Tensor,
                      focal_alpha: float = 0.25,
                      sem_seg_logits: Optional[torch.Tensor] = None,
                      gt_semantic: Optional[torch.Tensor] = None,
-                     sem_seg_weight: float = 1.0
+                     sem_seg_weight: float = 1.0,
+                     global_sum: Optional[GlobalSum] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Deep-supervised loss over every decoder layer: cls_preds (L, B, Q,
     K+1), mask_preds (L, B, Q, T, H, W), gt_masks (B, N, T, H, W) binary at
@@ -206,7 +231,9 @@ def mask2former_loss(cls_preds: torch.Tensor, mask_preds: torch.Tensor,
     ``loss_layout`` 'target' (dense only) computes the mask losses in the
     target layout; ``focal`` replaces each layer's loss_cls by the focal
     loss; the semantic loss is added when both ``sem_seg_logits`` and
-    ``gt_semantic`` are given. Returns (total, logs) with the JAX package's
+    ``gt_semantic`` are given. ``global_sum`` (a sum over the ranks of a
+    process group) makes the normalizers the global batch's. Returns
+    (total, logs) with the JAX package's
     keys: ``loss_cls``, ``loss_mask``, ``loss_dice`` for the last layer,
     with ``.d{l}`` for the earlier ones, and ``loss_sem_seg``."""
     if loss_layout == "target" and num_points > 0:
@@ -214,7 +241,7 @@ def mask2former_loss(cls_preds: torch.Tensor, mask_preds: torch.Tensor,
                          "(loss_sampling='dense'): point sampling needs the "
                          "per-query layout")
     L = cls_preds.shape[0]
-    num_total_masks = gt_valid.sum().float().clamp(min=1.0)
+    num_total_masks = _global(gt_valid.sum().float(), global_sum).clamp(min=1.0)
     if assigned is None:
         assigned = hungarian_assign_layers(
             cls_preds.detach(), mask_preds.detach(), gt_labels, gt_masks,
@@ -234,7 +261,8 @@ def mask2former_loss(cls_preds: torch.Tensor, mask_preds: torch.Tensor,
                 a, mask_preds[layer], gt_masks, gt_valid, num_total_masks,
                 mask_weight, dice_weight)
             losses["loss_cls"] = softmax_cls_loss(
-                cls_preds[layer], labels, num_classes, cls_weight, bg_cls_weight)
+                cls_preds[layer], labels, num_classes, cls_weight, bg_cls_weight,
+                global_sum)
         else:
             labels, tgt_masks, pos = gather_targets(
                 assigned[layer], gt_labels, gt_masks, num_classes)
@@ -242,17 +270,18 @@ def mask2former_loss(cls_preds: torch.Tensor, mask_preds: torch.Tensor,
                 cls_preds[layer], mask_preds[layer], labels, tgt_masks, pos,
                 num_total_masks, num_classes, cls_weight, mask_weight,
                 dice_weight, bg_cls_weight, num_points, oversample_ratio,
-                importance_sample_ratio, draw)
+                importance_sample_ratio, draw, global_sum)
         if focal:
             losses["loss_cls"] = focal_cls_loss(
                 cls_preds[layer], labels, num_classes, focal_gamma,
-                focal_alpha, cls_weight)
+                focal_alpha, cls_weight, global_sum)
         total = total + sum(losses.values())
         tag = "" if layer == L - 1 else f".d{layer}"
         for k, v in losses.items():
             logs[k + tag] = v
     if sem_seg_logits is not None and gt_semantic is not None:
-        loss_sem = sem_seg_loss(sem_seg_logits, gt_semantic, sem_seg_weight)
+        loss_sem = sem_seg_loss(sem_seg_logits, gt_semantic, sem_seg_weight,
+                                global_sum)
         total = total + loss_sem
         logs["loss_sem_seg"] = loss_sem
     return total, logs

@@ -13,6 +13,11 @@ per shape, but the validity masks make the padding exact and keep this a
 line-by-line reading of the reference; both packages draw the same
 ``random.Random`` numbers in the same order, so one seed gives the same
 batches in both.
+
+``DataParallelRelationTrainer`` spreads the accumulation over the 'data'
+axis of a mesh (``openpvsg_tpu/train/relation.py:218-260,320-405``): one
+replica per device, and same-bucket videos queue until there is one per
+replica.
 """
 from __future__ import annotations
 
@@ -256,15 +261,19 @@ class RelationTrainer:
         if batch is None:
             return None
         loss, aux, grads = self.loss_and_grads(batch)
-        if self._accum is None:
-            self._accum = grads
-        else:
-            torch._foreach_add_(self._accum, grads)
-        self._accum_count += 1
+        self.accumulate(grads, 1)
         if self._accum_count >= self.cfg.accumulation_steps:
             self.flush()
         values = torch.stack([loss.detach(), *(v.detach() for v in aux.values())]).cpu()
         return float(values[0]), dict(zip(aux, values[1:].tolist()))
+
+    def accumulate(self, grads: List[torch.Tensor], count: int) -> None:
+        """Add the gradients of ``count`` videos to the running sum."""
+        if self._accum is None:
+            self._accum = grads
+        else:
+            torch._foreach_add_(self._accum, grads)
+        self._accum_count += count
 
     def flush(self):
         """Apply Adam to the mean of the accumulated gradients."""
@@ -276,3 +285,94 @@ class RelationTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         self._accum = None
         self._accum_count = 0
+
+
+class DataParallelRelationTrainer(RelationTrainer):
+    """Relation training with the gradient accumulation spread over the
+    'data' axis of a ``Mesh`` (``openpvsg_tpu/train/relation.py:320``).
+
+    Videos are bucketed as in ``RelationTrainer``; same-bucket videos queue
+    until there is one per replica, then each replica computes the loss and
+    gradients of its video on its device, and the gradients are summed onto
+    the first device (JAX's psum over 'data'). A partial queue is padded
+    with copies of its first video at weight 0. Summing, not averaging,
+    keeps the sequential trainer's accumulate-then-divide: Adam applies the
+    sum divided by the video count every ``accumulation_steps`` videos
+    (the count is checked after each queue runs) and at ``flush``, which
+    drains the partial queues first. The replicas take the new weights after
+    each apply. The model and optimizer live on the mesh's first device.
+    """
+
+    def __init__(self, cfg: RelationHeadConfig, relation_count: np.ndarray,
+                 mesh, rng_seed: int = 0,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        from openpvsg_torch.parallel.mesh import replicate
+
+        super().__init__(cfg, relation_count, rng_seed, device=mesh.first,
+                         state_dict=state_dict)
+        self.mesh = mesh
+        self.n_data = mesh.shape["data"]
+        self.replicas = replicate(self.model, mesh)
+        self._replica_params = [list(m.parameters()) for m in self.replicas]
+        self._counts = [self.counts.to(next(m.parameters()).device)
+                        for m in self.replicas]
+        self._queues: Dict[tuple, List[RelationBatch]] = {}
+
+    def step(self, feats: np.ndarray, gt_relations: List[Dict]):
+        """Queue one video; runs the replicas when its bucket's queue is
+        full. Returns (mean loss, mean aux) of the queue that ran, else None."""
+        feats, gt_relations, custom_span = subsample_video(
+            feats, gt_relations, self.cfg, self.rng)
+        batch = build_batch(feats, gt_relations, custom_span, self.cfg, self.rng)
+        if batch is None:
+            return None
+        key = (batch.feats.shape, batch.pair_feats.shape[0])
+        self._queues.setdefault(key, []).append(batch)
+        if len(self._queues[key]) < self.n_data:
+            return None
+        res = self._run_queue(key)
+        if self._accum_count >= self.cfg.accumulation_steps:
+            self._apply()
+        return res
+
+    def _run_queue(self, key) -> Tuple[float, Dict[str, float]]:
+        batches = self._queues.pop(key)
+        n_valid = len(batches)
+        batches += [batches[0]] * (self.n_data - n_valid)
+        first = self.mesh.first
+        total, grads_sum = None, None
+        with ieee_float32():
+            for i, (model, b) in enumerate(zip(self.replicas, batches)):
+                dev = self._counts[i].device
+                weight = 1.0 if i < n_valid else 0.0
+                loss, aux = relation_loss(model, device_batch(b, dev), self._counts[i],
+                                          self.cfg.loss_prob_weight)
+                terms = torch.stack([loss, *aux.values()]) * weight
+                grads = torch.autograd.grad(terms[0], self._replica_params[i],
+                                            allow_unused=True)
+                grads = [torch.zeros_like(p, device=first) if g is None else g.to(first)
+                         for p, g in zip(self._replica_params[i], grads)]
+                terms = terms.detach().to(first)
+                if grads_sum is None:
+                    grads_sum, total = grads, terms
+                else:
+                    torch._foreach_add_(grads_sum, grads)
+                    total = total + terms
+        self.accumulate(grads_sum, n_valid)
+        values = (total / n_valid).cpu()
+        return float(values[0]), dict(zip(aux, values[1:].tolist()))
+
+    def _apply(self) -> None:
+        RelationTrainer.flush(self)
+        with torch.no_grad():
+            for params in self._replica_params[1:]:
+                for p, src in zip(params, self.params):
+                    p.copy_(src)
+
+    def flush(self):
+        """Drain every partial bucket queue, then apply the accumulated
+        gradients (epoch boundary or end of training)."""
+        for key in list(self._queues):
+            if self._queues[key]:
+                self._run_queue(key)
+        self._apply()

@@ -1,6 +1,6 @@
-"""Segmenter (VPS) training on one device: parameter groups, the optax
-recipe, the LR schedule and the train step — the port of
-``openpvsg_tpu/train/segmenter.py:36-117,185-310``.
+"""Segmenter (VPS) training on one device or over the ranks of a process
+group: parameter groups, the optax recipe, the LR schedule and the train
+step — the port of ``openpvsg_tpu/train/segmenter.py:14-18,36-117,185-310``.
 
 The recipe (reference: configs/mask2former/..._custom.py:163-191):
 
@@ -37,6 +37,19 @@ groups is optax's chain: its decoupled decay p *= 1 - lr * wd before the
 Adam step is optax's ``add_decayed_weights`` before
 ``scale_by_learning_rate``. The clip is written out, because
 ``clip_grad_norm_`` adds 1e-6 to the norm.
+
+Data parallelism (``process_group``): the JAX trainer shards the global
+batch over its mesh under ``pjit``, so its step is the one-device step on
+the global batch. Here each rank of the group takes its contiguous block of
+the global batch; 'sync_bn' reduces its batch statistics over the group
+(``models/resnet.py:set_process_group``), the loss normalizers are summed
+over it (``train/losses.py``), and each rank takes its slice of the global
+batch's point draws (``ops/sampling.py:rank_draw``). The ranks' losses then
+add up to the
+global batch's loss, and one flat all-reduce sums their gradients into its
+gradient, identical on every rank, which each rank clips by its global norm
+and applies. Rank 0's parameters and statistics are broadcast at
+construction. The logs are the global batch's.
 """
 from __future__ import annotations
 
@@ -53,7 +66,9 @@ from openpvsg_torch.config import (Mask2FormerConfig, TrainConfig,
 from openpvsg_torch.infer.segmenter import resolve_device
 from openpvsg_torch.models.layers import set_compute_dtype
 from openpvsg_torch.models.mask2former import Mask2Former
-from openpvsg_torch.ops.sampling import uniform_draw
+from openpvsg_torch.models.resnet import set_process_group
+from openpvsg_torch.ops.sampling import rank_draw, uniform_draw
+from openpvsg_torch.parallel.mesh import all_reduce_sum, broadcast_, split_blocks
 from openpvsg_torch.train.assign import (assignment_costs, lap_assign,
                                          solve_assignment)
 from openpvsg_torch.train.losses import mask2former_loss
@@ -229,13 +244,19 @@ class SegmenterTrainer:
     nothing queued); with 'lapjv' or 'greedy', from the costs' enqueue to
     the assignment on the host (``device_assign_s``, the forward's tail
     included).
+
+    With a ``process_group`` (``torch.distributed``; the device is then this
+    rank's) every ``step`` takes the global batch, whose size the group's
+    size must divide, and computes on this rank's contiguous block of it;
+    ``draw`` hands each rank its slice of the global batch's draws.
     """
 
     def __init__(self, cfg: Mask2FormerConfig, train_cfg: TrainConfig,
                  steps_per_epoch: int = 1000, device=None, seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  norm_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53),
-                 norm_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)):
+                 norm_std: Tuple[float, float, float] = (58.395, 57.12, 57.375),
+                 process_group=None):
         check_training_config(cfg)
         self.cfg = cfg
         self.assigner = resolve_assigner(cfg)
@@ -248,6 +269,17 @@ class SegmenterTrainer:
             set_compute_dtype(model, torch.bfloat16)
         self.model = model.to(self.device)
         self.params = list(self.model.parameters())
+        self.group = process_group
+        self.rank, self.world = 0, 1
+        if process_group is not None:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank(process_group)
+            self.world = dist.get_world_size(process_group)
+            set_process_group(self.model, process_group)
+            with torch.no_grad():
+                broadcast_(list(self.model.state_dict().values()),
+                           dist.get_global_rank(process_group, 0), process_group)
         self.optimizer = torch.optim.AdamW(
             param_groups(self.model, train_cfg), lr=0.0, betas=(0.9, 0.999),
             eps=1e-8)
@@ -257,8 +289,23 @@ class SegmenterTrainer:
         self._std = torch.tensor(norm_std, dtype=torch.float32, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.draw = uniform_draw(self.generator)
+        if self.world > 1:
+            self.draw = rank_draw(self.draw, self.rank, self.world)
         self.last_assigned: Optional[np.ndarray] = None
         self.last_timings: Dict[str, float] = {}
+
+    def local_batch(self, batch: Dict) -> Dict:
+        """This rank's contiguous block of the global batch (all of it
+        without a process group)."""
+        if self.group is None:
+            return batch
+        return split_blocks(batch, self.world)[self.rank]
+
+    def global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the process group (a copy)."""
+        t = t.detach().clone()
+        all_reduce_sum([t], self.group)
+        return t
 
     def device_batch(self, batch: Dict):
         """The batch's (images normalized float32, gt_labels int64,
@@ -282,11 +329,14 @@ class SegmenterTrainer:
         parameter (zeros where the loss does not reach one, as optax sees
         it) and returns (loss, logs) as device tensors. Updates the BN
         running statistics; does not step the optimizer. Runs under
-        ``ieee_float32`` whatever the caller's settings."""
+        ``ieee_float32`` whatever the caller's settings. With a process
+        group ``batch`` is the global batch, and the gradients and the logs
+        are the global batch's, summed over the ranks."""
         with ieee_float32():
             return self._loss_and_grads(batch)
 
     def _loss_and_grads(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        batch = self.local_batch(batch)
         images, gt_labels, gt_masks, gt_valid = self.device_batch(batch)
         cls_preds, mask_preds, _, sem_seg = self.model(images, return_sem_seg=True)
         gt_semantic = batch.get("gt_semantic")
@@ -300,6 +350,12 @@ class SegmenterTrainer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.group is not None:
+            all_reduce_sum([p.grad for p in self.params], self.group)
+            values = torch.stack([v.detach().float() for v in logs.values()])
+            all_reduce_sum([values], self.group)
+            logs = dict(zip(logs, values.unbind()))
+            loss = logs["loss"]
         return loss, logs
 
     def loss(self, cls_preds, mask_preds, gt_labels, gt_masks, gt_valid,
@@ -338,7 +394,8 @@ class SegmenterTrainer:
             loss_layout=cfg.loss_layout, focal=cfg.focal_cls,
             focal_gamma=cfg.focal_gamma, focal_alpha=cfg.focal_alpha,
             sem_seg_logits=sem_seg, gt_semantic=gt_semantic,
-            sem_seg_weight=cfg.sem_seg_weight, **kw)
+            sem_seg_weight=cfg.sem_seg_weight,
+            global_sum=None if self.group is None else self.global_sum, **kw)
 
     def apply_updates(self) -> None:
         """Clip the gradients by their global norm, then one AdamW step of

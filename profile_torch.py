@@ -26,7 +26,12 @@ TF32 off, the preset's ``samples_per_gpu`` clips of 2 384x480 frames) after
 two warm-up steps: the step's wall time, device busy time and idle share,
 the host LAP's time, the device time by kernel family and the top kernels.
 ``--dtype bfloat16`` profiles the bfloat16 compute step instead (float32
-parameters, ``model.backbone.dtype``).
+parameters, ``model.backbone.dtype``). ``--process-group`` profiles, in
+one process, the plain step and then the step under an NCCL process group
+of one rank (``SegmenterTrainer(process_group=...)``), at the 4 clips
+``chip_smoke.py``'s ``multi_device`` (d) runs, each from the same state
+after two warm-up steps, and adds each one's host operators by self CPU
+time.
 
 With ``--ips`` it instead profiles IPS stage 2 as ``chip_smoke.py``'s
 ``stage2_ips`` phase runs it (``mask2former_ips`` at full width, bf16
@@ -238,32 +243,60 @@ def summarize(torch, prof, wall, head):
         for name, (n, t) in top]}), flush=True)
 
 
-def profile_train(torch, np, seed, card, dtype="float32"):
+def host_ops(prof, top=TOP):
+    """Print the host operators of a profiled window by self CPU time."""
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    print(json.dumps({"top_host_ops": [
+        {"name": e.key[:120], "calls": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3}
+        for e in rows]}), flush=True)
+
+
+def profile_train(torch, np, seed, card, dtype="float32", process_group=False):
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import train_batch
+    from chip_smoke import free_port, train_batch
     from openpvsg_torch.config import mask2former_vps
     from openpvsg_torch.train.segmenter import SegmenterTrainer
+    from openpvsg_torch.weights import random_state_dict
 
     pvsg = mask2former_vps()
-    cfg, clips = pvsg.model, pvsg.train.samples_per_gpu
+    cfg, clips = pvsg.model, 4 if process_group else pvsg.train.samples_per_gpu
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
     batch = train_batch(np, clips, cfg.num_frames, (360, 480), (384, 480),
                         20, cfg.num_classes, seed)
-    trainer = SegmenterTrainer(cfg, pvsg.train, steps_per_epoch=1000, seed=seed)
-    for _ in range(2):
-        trainer.step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    summarize(torch, prof, wall, {
-        "card": card, "train_step": "mask2former_vps", "dtype": dtype,
-        "clips": clips, "frames": clips * cfg.num_frames,
-        "host_lap_ms": trainer.last_timings["host_lap_s"] * 1e3,
-        "cost_wait_ms": trainer.last_timings["cost_wait_s"] * 1e3})
+    kinds = ["plain"]
+    if process_group:
+        import torch.distributed as dist
+
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+        kinds.append("nccl_world_1")
+    state = random_state_dict(cfg, seed)
+    try:
+        for kind in kinds:
+            trainer = SegmenterTrainer(
+                cfg, pvsg.train, steps_per_epoch=1000, seed=seed, state_dict=state,
+                process_group=dist.group.WORLD if kind == "nccl_world_1" else None)
+            for _ in range(2):
+                trainer.step(batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            summarize(torch, prof, wall, {
+                "card": card, "train_step": "mask2former_vps", "dtype": dtype,
+                "process_group": kind, "clips": clips, "frames": clips * cfg.num_frames,
+                "host_lap_ms": trainer.last_timings["host_lap_s"] * 1e3,
+                "cost_wait_ms": trainer.last_timings["cost_wait_s"] * 1e3})
+            if process_group:
+                host_ops(prof)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        if process_group:
+            dist.destroy_process_group()
     return 0
 
 
@@ -529,6 +562,9 @@ def main(argv=None) -> int:
                     help="profile one stage-1 train step instead")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="the train step's compute dtype with --train")
+    ap.add_argument("--process-group", action="store_true",
+                    help="with --train, also profile the step under an NCCL "
+                         "process group of one rank")
     ap.add_argument("--relation", action="store_true",
                     help="profile one relation train step and one eval video instead")
     ap.add_argument("--ips", action="store_true",
@@ -565,7 +601,8 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card.splitlines()[0], **sass_counts(build)}), flush=True)
         return 0
     if args.train:
-        return profile_train(torch, np, args.seed, card.splitlines()[0], args.dtype)
+        return profile_train(torch, np, args.seed, card.splitlines()[0], args.dtype,
+                             args.process_group)
     if args.relation:
         return profile_relation(torch, np, args.seed, card.splitlines()[0])
     if args.ips:

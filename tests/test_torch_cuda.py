@@ -638,3 +638,27 @@ def test_tracker_device_work_on_the_card_matches_the_cpu_with_tf32_on(dev):
     assert torch.equal(feats["cpu"][1], feats["cuda"][1])
     assert float((feats["cpu"][0] - feats["cuda"][0]).abs().max()) <= 1e-4
     assert np.abs(feats["cpu"][2] - feats["cuda"][2]).max() <= 1e-4
+
+
+def test_kernels_launch_on_their_tensors_device(dev):
+    """B1's three launches and B2 on ``cuda:1`` from a thread whose current
+    device is ``cuda:0``: each wrapper launches under its input's device,
+    so the library's per-device caches and the launch itself are that
+    card's. Skips with fewer than two GPUs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    one = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    for dt in (torch.float32, torch.bfloat16):
+        f0, s8, p = _fpn_case(2, 24, 40, 64, 64, 64, dt, one)
+        got = fpn.fpn_stride4(f0, s8, p, num_groups=8)
+        assert got.device == one and torch.cuda.current_device() == 0
+        _close(got, fpn.fpn_stride4_plain(f0, s8, p, num_groups=8),
+               2e-4 if dt == torch.float32 else 5e-2)
+    g = torch.Generator().manual_seed(1)
+    low, scores = _fusion_case("random", 2, 10, 24, 30, g)
+    low, scores = low.to(one), scores.to(one)
+    got = fusion.fusion_maps(low, scores, (96, 120), (90, 110))
+    assert got[0].device == one and torch.cuda.current_device() == 0
+    for a, b in zip(got, fusion.fusion_maps_plain(low, scores, (90, 110))):
+        assert torch.equal(a, b.to(a.dtype))

@@ -26,8 +26,10 @@ package's on the CPU, and the reference's relation bundle converter:
 
 The JAX tools run in this process (``sys.argv`` patched), on their
 single-device path: their ``maybe_mesh`` is patched to return None, since
-the test process shows JAX 8 virtual CPU devices and the port has no mesh
-(ROADMAP.md A13).
+the test process shows JAX 8 virtual CPU devices, while the port's CLIs on
+the CPU (``--device cpu``) see one device and build no mesh; the mesh
+paths are held to JAX in tests/test_torch_parallel.py and
+tests/test_torch_multiprocess.py.
 """
 import json
 import os

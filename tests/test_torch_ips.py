@@ -269,16 +269,24 @@ def test_eval_mots_cli_matches_jax_tool(setup, ips_cli_run, tmp_path, source,
         assert got["MOTA"] == got["IDF1"] == got["HOTA"] == 1.0
 
 
-def test_stage2_clis_refuse_multi_process_flags(setup, tmp_path):
+def test_stage2_clis_refuse_multi_process_flags(setup, tmp_path, monkeypatch):
+    """The three stage-2 CLIs as the JAX tools: ``--dist-init`` outside
+    torchrun raises naming the missing variables (no hang), and ``--n-time
+    2`` raises as JAX's ``reject_unused_n_time`` (none scores relations)."""
     from openpvsg_torch.tools import (eval_mots, prepare_query_tube_ips,
                                       prepare_query_tube_vps)
 
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     for main in (prepare_query_tube_ips.main, prepare_query_tube_vps.main,
                  eval_mots.main):
-        for flag in (["--dist-init"], ["--n-time", "2"]):
-            with pytest.raises((NotImplementedError, SystemExit), match="A13"):
+        for flag, match in ((["--dist-init"], "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, "
+                                              "RANK not set"),
+                            (["--n-time", "2"], "only meaningful for tools with a "
+                                                "relation scoring stage")):
+            with pytest.raises(SystemExit, match=match):
                 main(["--work-dir", str(tmp_path), "--data-dir", setup["root"],
-                      "--anno-file", setup["anno"]] + flag)
+                      "--anno-file", setup["anno"], "--device", "cpu"] + flag)
 
 
 def test_save_tracking_overlay_matches_jax(tmp_path):

@@ -324,10 +324,28 @@ def test_evaluate_full_matches_jax(rel_sets, jax_eval, device_gather, tmp_path):
 
 
 def test_executor_raises_naming_a13():
+    """An executor is accepted: ``TimeShardedRelation`` over a (2, 2) mesh of
+    CPU replicas gives the one-device pairs and triplets, in both gather
+    modes, to ``evaluate_video`` and ``evaluate``."""
     from openpvsg_torch.eval.rel_eval import evaluate, evaluate_video
+    from openpvsg_torch.parallel.mesh import make_mesh
+    from openpvsg_torch.parallel.tp import TimeShardedRelation
 
     model = _models(5)[0]
-    with pytest.raises(NotImplementedError, match="A13"):
-        evaluate_video(model, np.zeros((3, 4, 256), np.float32), executor=object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        evaluate(model, [], 100, ["r"] * 5, executor=object())
+    executor = TimeShardedRelation(make_mesh(n_data=2, n_time=2, devices=["cpu"] * 4),
+                                   model)
+    feats = np.random.default_rng(3).standard_normal((6, 9, 256)).astype(np.float32)
+    want_pairs, want = evaluate_video(model, feats, num_top_pairs=8)
+    for device_gather in (True, False):
+        pairs, got = evaluate_video(model, feats, num_top_pairs=8, executor=executor,
+                                    device_gather=device_gather)
+        assert pairs == want_pairs and len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert (g["subject_index"], g["object_index"], g["relation"]) == \
+                   (w["subject_index"], w["object_index"], w["relation"])
+            np.testing.assert_array_equal(g["relation_span"], w["relation_span"])
+    rels = [{"subject_index": 0, "object_index": 1, "relation": 2,
+             "relation_span": np.ones(9)}]
+    item = [{"feats": feats, "relations": rels}]
+    assert evaluate(model, item, 100, ["r"] * 5, executor=executor) == \
+        evaluate(model, item, 100, ["r"] * 5)

@@ -16,9 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "openpvsg_tpu")
 
 
 def _port_files():
-    """The port's sources: chip_smoke.py and openpvsg_torch/, without its
-    git-ignored build/ directory (kernel libraries and build outputs)."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """The port's sources: chip_smoke.py, multi_gpu_torch.py and
+    openpvsg_torch/, without its git-ignored build/ directory (kernel
+    libraries and build outputs)."""
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "multi_gpu_torch.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "openpvsg_torch")):
         dirs[:] = [d for d in dirs if d not in ("build", "__pycache__")]
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -36,13 +37,13 @@ def _module_names():
 
 
 def test_import_leaves_jax_out():
-    """A fresh interpreter imports the port, every submodule and
-    chip_smoke with no jax, flax or openpvsg_tpu module loaded."""
+    """A fresh interpreter imports the port, every submodule, chip_smoke
+    and multi_gpu_torch with no jax, flax or openpvsg_tpu module loaded."""
     code = (
         "import importlib, sys\n"
         "pre = {m.split('.')[0] for m in sys.modules}\n"
         f"assert not pre & set({FORBIDDEN!r}), pre & set({FORBIDDEN!r})\n"
-        f"for m in {_module_names()!r} + ['chip_smoke']:\n"
+        f"for m in {_module_names()!r} + ['chip_smoke', 'multi_gpu_torch']:\n"
         "    importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
@@ -562,3 +563,47 @@ def test_streaming_and_end2end_default_to_the_gpu(tmp_path):
     engine = StreamingPVSG(SegmenterInference(cfg, state, device="cpu"), rel)
     assert engine._ring.hist.device.type == "cpu"
     assert {p.device.type for p in rel.parameters()} == {"cpu"}
+
+
+def test_parallel_loads_no_jax():
+    """``openpvsg_torch.parallel`` (mesh, sp, tp) imports in a fresh
+    interpreter, builds a mesh of CPU replicas and a time-sharded relation
+    executor, and loads no jax, flax or openpvsg_tpu module; the AST scan
+    covers its files."""
+    code = (
+        "import sys\n"
+        "from openpvsg_torch.models.relation.heads import RelationModel\n"
+        "from openpvsg_torch.parallel import make_mesh, mesh, sp, tp\n"
+        "m = make_mesh(n_data=2, n_time=2, devices=['cpu'] * 4)\n"
+        "tp.TimeShardedRelation(m, RelationModel(feature_dim=32, encoder_heads=2))\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for name in ("__init__", "mesh", "sp", "tp"):
+        assert os.path.join("openpvsg_torch", "parallel", f"{name}.py") in scanned
+
+
+def test_mesh_and_distributed_runs_default_to_the_gpu():
+    """Without a GPU a mesh of the default devices, a process group without
+    ``device='cpu'`` and a segmenter over a CUDA mesh raise instead of
+    running on the CPU."""
+    from openpvsg_torch.parallel.mesh import Mesh, init_distributed, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(n_data=2, devices=["cuda:0", "cuda:1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed("tcp://localhost:1", world_size=1, rank=0)
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = _tiny_cfg()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SegmenterInference(cfg, random_state_dict(cfg, 0),
+                           mesh=Mesh([[torch.device("cuda", 0)]]))
