@@ -273,7 +273,41 @@ Phases, each printing one JSON line:
              of world size 1 against the plain step from the same state:
              logs within 1e-6 of their scale; a second step of each timed
              (ms, peak GiB). Any failure fails the phase.
-16. the ``{"kernels": [...]}`` line (since phase 5's batching with each
+16. port_remainder — the rest of the JAX package on the card, TF32 off:
+             (a) int8 weights: phase 5's 16 360x480 frames at window 2 in
+             bf16 with ``int8_weights`` off and on, in turns (off, on, off,
+             on): frames/s, resident weight bytes, each kernel's launches
+             (each at least 1) and the share of ``masks.txt`` pixels whose
+             class differs (reported: random weights); the same folded
+             weights quantized and dequantized on the card must equal the
+             CPU's quantization bit for bit, and the int8 model on the card
+             must agree with it on the CPU in float32 at phase 4's
+             tolerance; (b) ``fast_norm``, the same A/B: every output
+             finite, ``fast_norm=False`` byte-identical to phase 5's
+             ``masks.txt``, and the card against the CPU in float32 at phase
+             4's tolerance; (c) the R-50 'gn' backbone: the model
+             card against CPU in float32 at phase 4's tolerance, its stage 2
+             on 8 frames (B1 and B2 launch), and one timed full-width 'gn'
+             training step of 8 clips (ms, peak GiB); (d) the 'random'
+             appearance encoder: IPS stage 2, the card's tracker against
+             the CPU's on the same segmentation, on 8 360x640 frames through
+             the segmenter and on 16 frames of phase 11's tracker video with
+             its label maps as the segmentation (at least 2 tubes); the
+             card's seeds, taken from its own float32 sums, drive both
+             trackers' draws and lie within 1 + 1e-6 of the input's
+             absolute sum of the CPU's (``masks.txt`` and track ids equal);
+             (e) a
+             ``.npz`` in ``export_jax_checkpoint.py``'s format written from
+             the seed's state through ``to_jax_params`` and read by
+             ``load_jax_export``: the same segmenter outputs, the same
+             relation state; (f) ``assigner_parity`` at 20 steps (each
+             assigner's final loss, PQ, step ms and ``delta``, reported) with
+             LAPJV equal to the host Hungarian on the first batch's costs,
+             and ``stress_reference_scale`` at full width with frames and
+             steps cut: the (100, 200) relation cell, 256 streamed frames
+             through the stage-2 model and a 48-frame 360x640 stage 2 (B1
+             and B2 must launch in both). Any failed check fails the phase.
+17. the ``{"kernels": [...]}`` line (since phase 5's batching with each
    kernel's ``stage2_wpb2_launches``, ``stage2_wpb4_launches`` and its
    error, ms, plain ms, bound and library ms at the 4-window batch's
    shapes; since phase 13 with each kernel's
@@ -282,7 +316,8 @@ Phases, each printing one JSON line:
    ``streaming_launches`` and each kernel's error, ms, plain ms, bound and
    library ms at end2end VPS's shape; since phase 15 with
    ``multi_device_launches`` (the bf16 mesh run) and
-   ``multi_device_launches_per_replica``), then the last line
+   ``multi_device_launches_per_replica``; since phase 16 with
+   ``port_remainder_launches``, each serving path's count), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -666,16 +701,19 @@ def synthetic_frames(np, n, h, w, seed):
     return frames
 
 
-def check_reference(torch, np, cfg, state, seed, phase="reference"):
+def check_reference(torch, np, cfg, state, seed, phase="reference", part=None,
+                    int8_weights=False, fast_norm=False):
     """Full-width model, small input: the GPU path (kernels) in float32
     against the CPU path (plain versions, the path the tests hold against
-    the JAX package)."""
+    the JAX package), with int8 weights or ``fast_norm`` when asked."""
     from openpvsg_torch.infer.segmenter import SegmenterInference
 
     frames = synthetic_frames(np, 2, 360, 480, seed)[:, 100:164, 100:164]
     outs = {}
     for dev in ("cpu", None):
-        seg = SegmenterInference(cfg, state, dtype=torch.float32, device=dev)
+        seg = SegmenterInference(cfg, state, dtype=torch.float32, device=dev,
+                                 int8_weights=int8_weights)
+        seg.model.fast_norm = fast_norm
         outs[dev] = [t.float().cpu() for t in seg.forward_frames(frames)]
         del seg
     row = {}
@@ -688,8 +726,8 @@ def check_reference(torch, np, cfg, state, seed, phase="reference"):
         row[name] = {"shape": list(a.shape), "max_abs_err": err,
                      "ref_absmax": ref_max, "ok": good}
         ok = ok and good
-    emit({"phase": phase, "input": [2, 64, 64, 3], "dtype": "float32",
-          **row, "ok": ok})
+    emit({"phase": phase, **({"part": part} if part else {}),
+          "input": [2, 64, 64, 3], "dtype": "float32", **row, "ok": ok})
     if not ok:
         fail(f"GPU forward disagrees with the CPU reference: {row}")
 
@@ -806,7 +844,7 @@ def run_stage2(torch, np, cfg, state, seed, wrappers, n_frames=16):
                  f"bits: {b['class_pixels_differing_share']:.4f} of the pixels")
         if any(v == 0 for v in b["launches"].values()):
             fail(f"windows_per_batch={wpb}: a kernel never launched: {b['launches']}")
-    return launches, {wpb: b["launches"] for wpb, b in batched.items()}
+    return launches, {wpb: b["launches"] for wpb, b in batched.items()}, masks[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2529,11 +2567,46 @@ def check_train_options(torch, np, seed):
     return rows
 
 
+# rtol, atol of a LAPJV total against the host's optimum where the two
+# assignments differ: tests/test_torch_train_options.py's
+# test_lapjv_objective_equals_host_hungarian
+LAPJV_TIE_TOL = (1e-6, 1e-5)
+
+
+def lapjv_ties(np, costs, lapjv, host):
+    """One row for each (layer, item) problem of ``costs`` (L, B, Q, N)
+    where the assignments ``lapjv`` and ``host`` (L, B, Q) differ: the
+    float64 totals of both, whether LAPJV's is one-to-one onto the valid
+    targets, and ``ok`` when it is and its total is the host's within
+    LAPJV_TIE_TOL."""
+    from openpvsg_torch.train.assign import BIG_COST
+
+    rtol, atol = LAPJV_TIE_TOL
+    rows = []
+    for p in zip(*np.nonzero((lapjv != host).any(-1))):
+        c = costs[p].astype(np.float64)
+        one_to_one = np.array_equal(np.sort(lapjv[p][lapjv[p] >= 0]),
+                                    np.flatnonzero(c[0] < BIG_COST / 2))
+        total = [float(c[np.flatnonzero(a >= 0), a[a >= 0]].sum())
+                 for a in (lapjv[p], host[p])]
+        rows.append({"problem": [int(i) for i in p], "lapjv": total[0], "host": total[1],
+                     "one_to_one": bool(one_to_one),
+                     "ok": bool(one_to_one and abs(total[0] - total[1])
+                                <= atol + rtol * abs(total[1]))})
+    return rows
+
+
 def lapjv_against_host(torch, np, trainer, batch):
     """The costs of one full-width step (the trainer's model, its batch),
     solved by the host Hungarian (copy + C++ LAP) and by LAPJV and greedy on
-    the card: each one's ms (synchronized), and whether LAPJV's assignment
-    equals the host's."""
+    the card: each one's ms (synchronized), whether LAPJV's assignment
+    equals the host's, and ``lapjv_ok``: LAPJV on the card equals LAPJV on
+    the CPU bit for bit (the CPU tests hold that one bitwise to JAX's), and
+    in every problem where it differs from the host it is one-to-one onto
+    the valid targets at the host's optimum within LAPJV_TIE_TOL. LAPJV
+    solves in float32 (as JAX's) and the host in float64, so a tie at
+    float32's resolution may go either way: the float64 totals of the two
+    choices then differ by a few 1e-7."""
     from openpvsg_torch.train.assign import (assignment_costs, device_assign,
                                              lap_assign, lapjv_assign_from_cost)
     from openpvsg_torch.train.segmenter import ieee_float32
@@ -2562,13 +2635,19 @@ def lapjv_against_host(torch, np, trainer, batch):
     for name, (_, a) in out.items():
         q = np.nonzero(a >= 0)
         objective[name] = float(c[(*q, a[q])].astype(np.float64).sum())
+    lapjv = out["lapjv"][1]
+    on_cpu = device_assign(costs.cpu(), "lapjv").numpy()
+    ties = lapjv_ties(np, c, lapjv, host)
     return {"problems": list(costs.shape[:2]), "queries": costs.shape[2],
             "targets": costs.shape[3],
             "host_lap_ms": out["hungarian"][0], "lapjv_ms": out["lapjv"][0],
             "lapjv_again_ms": out["lapjv_again"][0], "greedy_ms": out["greedy"][0],
             "lapjv_host_checks": stats["host_checks"],
             "lapjv_lockstep_iterations": stats["iterations"],
-            "lapjv_equals_host": bool(np.array_equal(out["lapjv"][1], host)),
+            "lapjv_equals_host": bool(np.array_equal(lapjv, host)),
+            "lapjv_equals_cpu_lapjv": bool(np.array_equal(lapjv, on_cpu)),
+            "lapjv_ties": ties,
+            "lapjv_ok": bool(np.array_equal(lapjv, on_cpu) and all(t["ok"] for t in ties)),
             "greedy_equals_host": bool(np.array_equal(out["greedy"][1], host)),
             "objective": objective}
 
@@ -2686,8 +2765,9 @@ def run_swin(torch, np, seed, gen, dev, wrappers):
     emit({"phase": "swin", "part": "train", **row_d})
     if not (all(np.isfinite(losses)) and all(np.isfinite(lap_losses))):
         problems.append(f"a Swin training loss is not finite: {losses} {lap_losses}")
-    if not lap["lapjv_equals_host"]:
-        problems.append("LAPJV on the card disagrees with the host Hungarian")
+    if not lap["lapjv_ok"]:
+        problems.append("LAPJV on the card disagrees with the CPU's LAPJV or is off "
+                        f"the host Hungarian's optimum: {lap['lapjv_ties']}")
     options = check_train_options(torch, np, seed)
     for name, row in options.items():
         emit({"phase": "swin", "part": "train_option", "option": name, **row})
@@ -3366,6 +3446,469 @@ def run_multi_device(torch, np, seed, wrappers, cfg, state, dev):
     return bf16["mesh_launches"], bf16["mesh_launches_per_replica"]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the JAX package (int8 weights, fast_norm, the 'gn'
+# backbone, the 'random' encoder, JAX exports, the study tools)
+# ---------------------------------------------------------------------------
+
+GN_TRAIN_CLIPS = 8
+
+
+def stage2_run(torch, seg, frames, root, wrappers):
+    """``run_query_tube_vps`` at window 2 with the launch counts zeroed just
+    before and read just after: (seconds, masks.txt bytes, launches)."""
+    from openpvsg_torch.infer.stages import run_query_tube_vps
+
+    for fn in wrappers:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_query_tube_vps(seg, frames, root, window=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(root, "quantitive", "masks.txt"), "rb") as f:
+        return seconds, f.read(), {fn.__name__: fn.launches for fn in wrappers}
+
+
+def serving_ab(torch, np, segs, frames, tmp, wrappers, name):
+    """Stage 2 of each of ``segs`` ({'off': ..., 'on': ...}) on ``frames``,
+    warmed once, then off, on, off, on: frames/s of each run, the last run's
+    launches and masks.txt bytes, and the share of pixels whose class
+    differs between off and on."""
+    from openpvsg_torch.infer.stages import run_query_tube_vps
+
+    for k, seg in segs.items():
+        run_query_tube_vps(seg, frames[:4], os.path.join(tmp, f"{name}_warm_{k}"), window=2)
+    rows = {k: {"frames_per_s": []} for k in segs}
+    masks = {}
+    for i, k in enumerate(("off", "on", "off", "on")):
+        root = os.path.join(tmp, f"{name}_{k}_{i}")
+        seconds, masks[k], launches = stage2_run(torch, segs[k], frames, root, wrappers)
+        rows[k]["frames_per_s"].append(len(frames) / seconds)
+        rows[k]["launches"] = launches
+        rows[k]["root"] = root
+    maps = {k: class_maps(np, os.path.join(rows[k].pop("root"), "quantitive", "masks.txt"),
+                          len(frames)) for k in segs}
+    return rows, masks, float((maps["off"] != maps["on"]).mean())
+
+
+class SeedDraw:
+    """A ``RandomFeatEncoder`` draw that keeps the seed each call is given
+    (the float32 sum of the encoder's input, taken on that input's device)
+    and draws ``generator_draw`` from it; with ``replay``, call k draws from
+    ``replay[k]`` instead, so a CPU tracker sees the features the card's
+    seeds gave, call by call."""
+
+    def __init__(self, replay=None):
+        self.seeds, self.replay = [], replay
+
+    def __call__(self, shape, seed):
+        from openpvsg_torch.tracker.zoo import generator_draw
+
+        k = len(self.seeds)
+        self.seeds.append(seed)
+        return generator_draw(shape, seed if self.replay is None else self.replay[k])
+
+
+class RecordedIPS:
+    """Replays a segmenter's packaged IPS outputs, batch by batch, in the
+    order ``run_query_tube_ips`` fetched them (``record`` wraps the live
+    segmenter and keeps them)."""
+
+    def __init__(self, seg=None, outputs=None):
+        self.seg, self.outputs = seg, outputs if outputs is not None else []
+        self._next = 0
+
+    def infer_frames_ips_async(self, frames, ori_hw=None):
+        return None if self.seg is None else self.seg.infer_frames_ips_async(frames, ori_hw)
+
+    def package_ips(self, handle):
+        if self.seg is not None:
+            out = self.seg.package_ips(handle)
+            self.outputs.append(out)
+            return out
+        out = self.outputs[self._next]
+        self._next += 1
+        return out
+
+
+class GroundTruthIPS:
+    """Packaged IPS outputs made from label maps (each object a segment of
+    its class, with a fixed query feature per object plus noise), served
+    batch by batch to ``run_query_tube_ips``: a segmentation with many
+    objects, which random weights do not give."""
+
+    def __init__(self, np, label_maps, classes, seed):
+        from openpvsg_torch import INSTANCE_OFFSET
+
+        rng = np.random.default_rng([seed, 6000])
+        feats = {i: rng.standard_normal(256).astype(np.float32) for i in classes}
+        self.outputs = []
+        for m in label_maps:
+            pan = np.zeros(m.shape, np.int64)
+            qf = {}
+            for i in (int(i) for i in np.unique(m) if i):
+                seg_id = classes[i] + INSTANCE_OFFSET * i
+                pan[m == i] = seg_id
+                qf[seg_id] = feats[i] + 0.1 * rng.standard_normal(256).astype(np.float32)
+            self.outputs.append({"pan_results": pan, "query_feats": qf})
+        self._next = 0
+
+    def infer_frames_ips_async(self, frames, ori_hw=None):
+        return len(frames)
+
+    def package_ips(self, n):
+        out = self.outputs[self._next:self._next + n]
+        self._next += n
+        return out
+
+
+def random_tracker_card_and_cpu(torch, tcfg, app_state, sources, frames, root):
+    """``run_query_tube_ips`` with the 'random' encoder, the tracker on the
+    card and then on the CPU, each fed by ``sources[where]``: the card's
+    encoder draws from the seeds it takes, the CPU's from the card's seeds
+    call by call (``SeedDraw``); returns the comparison's row."""
+    from openpvsg_torch.data.io import load_pickle
+    from openpvsg_torch.infer.stages import run_query_tube_ips
+    from openpvsg_torch.tracker.tracker import MaskAssociationTracker
+    from openpvsg_torch.tracker.zoo import RandomFeatEncoder
+
+    out = {}
+    for where in ("cuda", "cpu"):
+        tracker = MaskAssociationTracker(tcfg, app_state,
+                                         device="cpu" if where == "cpu" else None)
+        enc = tracker.appearance_model
+        assert isinstance(enc, RandomFeatEncoder)
+        enc.draw = SeedDraw(None if where == "cuda" else out["cuda"]["seeds"])
+        abs_sums, forward = [], enc.forward
+        enc.forward = lambda x: (abs_sums.append(float(x.double().abs().sum())),
+                                 forward(x))[1]
+        where_root = f"{root}_{where}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run_query_tube_ips(sources[where], tracker, frames, where_root, batch_size=8)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(where_root, "quantitive", "masks.txt"), "rb") as f:
+            masks = f.read()
+        tubes = load_pickle(os.path.join(where_root, "query_feats.pickle"))
+        out[where] = {"tubes": n, "masks": masks, "ids": [t.track_id for t in tubes],
+                      "seeds": enc.draw.seeds, "abs_sums": abs_sums, "seconds": seconds}
+    card, cpu = out["cuda"], out["cpu"]
+    seed_err = [abs(a - b) for a, b in zip(card["seeds"], cpu["seeds"])]
+    seeds_ok = (len(card["seeds"]) == len(cpu["seeds"]) and card["seeds"]
+                and all(e <= 1 + 1e-6 * s for e, s in zip(seed_err, card["abs_sums"])))
+    return {"frames": len(frames), "tubes": card["tubes"],
+            "masks_txt_lines": len(card["masks"].decode().splitlines()),
+            "seconds": card["seconds"], "draws": len(card["seeds"]),
+            "seeds_equal_cpu": sum(e == 0 for e in seed_err),
+            "seed_max_abs_diff": max(seed_err, default=None),
+            "input_abs_sum_max": max(card["abs_sums"], default=None),
+            "seeds_within_bound": bool(seeds_ok),
+            "masks_txt_equal_cpu": card["masks"] == cpu["masks"],
+            "track_ids_equal_cpu": card["ids"] == cpu["ids"]}
+
+
+def random_encoder_ips(torch, np, seed, wrappers, tmp):
+    """IPS stage 2 with the 'random' appearance encoder, the tracker on the
+    card against the tracker on the CPU on the same segmentation: (1) 8
+    360x640 frames through the full-width segmenter (B1 and B2 launch;
+    random weights give few segments), (2) the first 16 frames of the
+    tracker phase's video, its label maps as the segmentation (15 objects).
+    The card's encoder draws from the seeds it takes on the card (the
+    float32 sum of its input); the CPU's draws from the card's seeds, call
+    by call, and the seeds it takes itself must lie within 1 + 1e-6 of the
+    input's absolute sum of the card's. masks.txt bytes and tube ids must be
+    equal, and (2) must give at least 2 tubes."""
+    from openpvsg_torch.config import TrackerConfig, mask2former_ips
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_appearance_state_dict, random_state_dict
+
+    cfg = dataclasses.replace(mask2former_ips().model, object_mask_thr=0.0, iou_thr=0.1)
+    tcfg = TrackerConfig(model_type="random")
+    app_state = random_appearance_state_dict(tcfg, seed)
+
+    seg = SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=torch.bfloat16)
+    recorder = RecordedIPS(seg)
+    for fn in wrappers:
+        fn.launches = 0
+    row = {"frame_hw": [360, 640]}
+    row["segmenter"] = random_tracker_card_and_cpu(
+        torch, tcfg, app_state, {"cuda": recorder, "cpu": RecordedIPS(outputs=recorder.outputs)},
+        list(ips_frames(np, seed, n=8)), os.path.join(tmp, "random_segmenter"))
+    row["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    del seg
+    vframes, vmasks, classes = tracker_video(np, seed, n_frames=16)
+    row["label_maps"] = random_tracker_card_and_cpu(
+        torch, tcfg, app_state, {k: GroundTruthIPS(np, vmasks, classes, seed)
+                                 for k in ("cuda", "cpu")},
+        list(vframes), os.path.join(tmp, "random_label_maps"))
+    row["ok"] = bool(all(r["masks_txt_equal_cpu"] and r["track_ids_equal_cpu"]
+                         and r["masks_txt_lines"] and r["seeds_within_bound"]
+                         for r in (row["segmenter"], row["label_maps"]))
+                     and row["label_maps"]["tubes"] >= 2
+                     and all(row["launches"].values()))
+    return row
+
+
+def jax_export_roundtrip(torch, np, cfg, state, seed, tmp):
+    """The seed's state through ``to_jax_params`` into a ``.npz`` of
+    ``export_jax_checkpoint.py``'s format (the port's ``write_jax_export``,
+    which that script runs on an orbax checkpoint), read back by ``load_jax_export``: the
+    segmenter's outputs equal those from the state dict, and a relation
+    head's export gives its state dict back."""
+    from openpvsg_torch.config import RelationHeadConfig
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.train.checkpoint import load_jax_export, write_jax_export
+    from openpvsg_torch.weights import (random_relation_state_dict, relation_to_jax_params,
+                                        to_jax_params)
+
+    seg_path, rel_path = os.path.join(tmp, "seg.npz"), os.path.join(tmp, "rel.npz")
+    write_jax_export({**to_jax_params(state, cfg), "step": np.int32(0)}, seg_path)
+    rel_cfg = RelationHeadConfig()
+    rel_state = random_relation_state_dict(rel_cfg, seed)
+    write_jax_export({"params": relation_to_jax_params(rel_state, rel_cfg)}, rel_path)
+    frames = synthetic_frames(np, 2, 360, 480, seed)
+    outs = []
+    for sd in (state, load_jax_export(seg_path, cfg)):
+        seg = SegmenterInference(cfg, sd, dtype=torch.bfloat16)
+        outs.append([t.cpu() for t in seg.forward_frames(frames)])
+        del seg
+    got = load_jax_export(rel_path, rel_cfg)
+    row = {"npz_mb": os.path.getsize(seg_path) / 1e6,
+           "segmenter_outputs_equal": all(torch.equal(a, b) for a, b in zip(*outs)),
+           "relation_state_equal": (set(got) == set(rel_state)
+                                    and all(torch.equal(got[k], rel_state[k]) for k in got))}
+    row["ok"] = row["segmenter_outputs_equal"] and row["relation_state_equal"]
+    return row
+
+
+def study_tools(torch, np, seed, wrappers, dev, tmp, parity_steps=20, stream_frames=256,
+                stage2_frames=48):
+    """``assigner_parity`` at a cut number of steps (each assigner's final
+    loss, PQ and step ms, and ``delta`` against the Hungarian) with LAPJV
+    held to the host on the first batch's costs; ``stress_reference_scale``
+    at full width with its frames and steps cut: the (100, 200) relation
+    cell, ``stream_frames`` of streaming over the stage-2 model and a
+    ``stage2_frames``-frame 360x640 stage 2 (B1 and B2 must launch in
+    both)."""
+    from openpvsg_torch.config import DataConfig, PVSGConfig, TrainConfig
+    from openpvsg_torch.data.pvsg import PVSGAnnotation
+    from openpvsg_torch.data.synthetic import make_dataset
+    from openpvsg_torch.tools import assigner_parity as ap
+    from openpvsg_torch.tools import stress_reference_scale as srs
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    problems = []
+    out_path = os.path.join(tmp, "assigner_parity.json")
+    root = os.path.join(tmp, "parity_data")
+    t0 = time.perf_counter()
+    ap.main(["--steps", str(parity_steps), "--out", out_path, "--data-root", root,
+             "--device", str(dev)])
+    parity_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        parity = json.load(f)
+    _, batches = ap.build_batches(root, 1, 4, seed=1)
+    trainer = SegmenterTrainer(ap.tiny_cfg("hungarian"), TrainConfig(seed=0, lr=5e-4,
+                                                                     warmup_iters=10),
+                               steps_per_epoch=parity_steps, device=dev, seed=0)
+    parity["first_batch_costs"] = lapjv_against_host(torch, np, trainer, batches[0])
+    parity["seconds"] = parity_s
+    del trainer
+    if not parity["first_batch_costs"]["lapjv_ok"]:
+        problems.append("assigner_parity: LAPJV on the first batch disagrees with the "
+                        "CPU's LAPJV or is off the host's optimum: "
+                        f"{parity['first_batch_costs']['lapjv_ties']}")
+    for name in ap.ASSIGNERS:
+        if not np.isfinite(parity[name]["loss_last10"]):
+            problems.append(f"assigner_parity: {name}'s loss is not finite")
+
+    report = {"platform": "gpu", "device_kind": torch.cuda.get_device_name(dev)}
+    t0 = time.perf_counter()
+    srs.stress_relation(report, dev, cells=((100, 200, 60),))
+    seg_cfg = stage2_config()
+    srs.stress_streaming(report, dev, total_frames=stream_frames,
+                         segmenter=srs.model_segmenter(seg_cfg, dev))
+    data = os.path.join(tmp, "stress_data")
+    make_dataset(data, n_train=0, n_val=1, n_frames=stage2_frames, h=360, w=640, seed=seed)
+    pvsg = PVSGConfig(model=seg_cfg, data=DataConfig(
+        data_dir=data, anno_file=os.path.join(data, "pvsg.json"),
+        work_dir=os.path.join(tmp, "stress_work")))
+    srs.stress_stage2(report, pvsg, PVSGAnnotation(pvsg.data.anno_file).video_ids("val"), dev)
+    report["seconds"] = time.perf_counter() - t0
+    for cell in report["relation"].values():
+        if not (cell["grad_step_ms"] > 0 and cell["eval_results"] > 0):
+            problems.append(f"stress relation cell: {cell}")
+    stream = report["streaming"]
+    if not stream["intervals_scored"] or any(v == 0 for v in stream["launches"].values()):
+        problems.append(f"stress streaming scored nothing or launched no kernel: {stream}")
+    for vid, row in report["stage2"].items():
+        if any(v == 0 for v in row["launches"].values()) or not row["tubes"]:
+            problems.append(f"stress stage 2 {vid}: no tube or a kernel never launched")
+    launches = {"stress_streaming": stream["launches"],
+                "stress_stage2": next(iter(report["stage2"].values()))["launches"]}
+    return parity, report, launches, problems
+
+
+def gn_train_step(torch, np, seed):
+    """One timed full-width ``mask2former_vps`` step with the 'gn' backbone
+    (float32, ``GN_TRAIN_CLIPS`` clips of 2 384x480 frames): a warm step,
+    then the timed one; ms, losses and peak GiB."""
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.train.segmenter import SegmenterTrainer
+
+    pvsg = mask2former_vps()
+    cfg = dataclasses.replace(pvsg.model, backbone=dataclasses.replace(
+        pvsg.model.backbone, norm="gn"))
+    batch = train_batch(np, GN_TRAIN_CLIPS, cfg.num_frames, (360, 480), (384, 480), 20,
+                        cfg.num_classes, seed)
+    trainer = SegmenterTrainer(cfg, pvsg.train, steps_per_epoch=1000, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(batch)["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    row = {"config": "mask2former_vps, backbone norm gn", "dtype": "float32",
+           "clips": GN_TRAIN_CLIPS, "frames_per_clip": cfg.num_frames, "padded_hw": [384, 480],
+           "losses": losses, "step_ms": step_ms[-1], "first_step_ms": step_ms[0],
+           "host_lap_ms": trainer.last_timings["host_lap_s"] * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "gn_params": sum(p.numel() for n, p in trainer.model.named_parameters()
+                            if ".gn." in n and n.startswith("backbone."))}
+    row["ok"] = bool(all(np.isfinite(losses)) and row["gn_params"] > 0)
+    del trainer
+    return row
+
+
+def run_port_remainder(torch, np, seed, wrappers, cfg, state, stage2_masks, dev):
+    """Phase 16 on the card, TF32 off: (a) int8 weights and (b) fast_norm,
+    each an off / on A/B of phase 5's stage 2; (c) the 'gn' backbone card
+    against CPU, its stage 2 and a timed training step; (d) the 'random'
+    appearance encoder; (e) JAX exports; (f) the study tools. Returns the
+    launch counts of each serving path it drove; any failed check fails the
+    phase."""
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.models.resnet import fold_frozen_bn
+    from openpvsg_torch.utils.quantize import dequantize, quantize_state_int8
+    from openpvsg_torch.weights import random_state_dict
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "settings", "matmul_allow_tf32": False, "cudnn_allow_tf32": False})
+    problems, launches = [], {}
+    frames = list(synthetic_frames(np, 16, 360, 480, seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) int8 weights
+        segs = {"off": SegmenterInference(cfg, state, dtype=torch.bfloat16),
+                "on": SegmenterInference(cfg, state, dtype=torch.bfloat16, int8_weights=True)}
+        rows, masks, differ = serving_ab(torch, np, segs, frames, tmp, wrappers, "int8")
+        # the segmenter quantized on the CPU; the same folded weights
+        # quantized and dequantized on the card must give the same bits
+        folded = {k: v.to(dev) for k, v in fold_frozen_bn(state).items()}
+        _, want = quantize_state_int8(folded, scopes=("backbone", "pixel_decoder"))
+        got = segs["on"]._q8[0]
+        q8_differ = {"keys": set(got) != set(want), "int8": 0, "scales": 0, "dequantized": 0}
+        for k in set(got) & set(want):
+            q8_differ["int8"] += not torch.equal(got[k][0], want[k][0])
+            q8_differ["scales"] += not torch.equal(got[k][1], want[k][1])
+            q8_differ["dequantized"] += not torch.equal(
+                dequantize(*want[k], torch.bfloat16),
+                dequantize(got[k][0].cpu(), got[k][1].cpu(), torch.bfloat16).to(dev))
+        bitwise = not any(q8_differ.values())
+        del folded, want
+        row = {"frames": len(frames), "frame_hw": [360, 480], "window": 2, "dtype": "bfloat16",
+               **{k: {**r, "weight_bytes": segs[k].weight_bytes()} for k, r in rows.items()},
+               "kernels_quantized": len(got),
+               "elements_quantized": sum(q.numel() for q, _ in got.values()),
+               "class_pixels_differing_share": differ, "q8_card_equal_cpu_quantization": bitwise,
+               "q8_card_differs_from_cpu": q8_differ}
+        emit({"phase": "port_remainder", "part": "int8_weights", **row})
+        if not bitwise:
+            problems.append("int8: the card's quantization or dequantization differs "
+                            "from the CPU's")
+        for k in ("off", "on"):
+            if any(v == 0 for v in rows[k]["launches"].values()):
+                problems.append(f"int8 {k}: a kernel never launched: {rows[k]['launches']}")
+        launches["int8_on"] = rows["on"]["launches"]
+        del segs
+        check_reference(torch, np, cfg, state, seed, phase="port_remainder",
+                        part="int8_reference", int8_weights=True)
+
+        # (b) fast_norm
+        segs = {"off": SegmenterInference(cfg, state, dtype=torch.bfloat16),
+                "on": SegmenterInference(cfg, state, dtype=torch.bfloat16)}
+        segs["on"].model.fast_norm = True
+        rows, masks, differ = serving_ab(torch, np, segs, frames, tmp, wrappers, "fast_norm")
+        outs = segs["on"].forward_frames(np.stack(frames[:2]))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in outs)
+        row = {"frames": len(frames), "frame_hw": [360, 480], "window": 2, "dtype": "bfloat16",
+               **rows, "class_pixels_differing_share": differ, "outputs_finite": finite,
+               "off_masks_txt_equal_phase_stage2": masks["off"] == stage2_masks}
+        emit({"phase": "port_remainder", "part": "fast_norm", **row})
+        if not finite:
+            problems.append("fast_norm: an output is not finite")
+        if not row["off_masks_txt_equal_phase_stage2"]:
+            problems.append("fast_norm=False changed phase stage2's masks.txt")
+        for k in ("off", "on"):
+            if any(v == 0 for v in rows[k]["launches"].values()):
+                problems.append(f"fast_norm {k}: a kernel never launched: {rows[k]['launches']}")
+        launches["fast_norm_on"] = rows["on"]["launches"]
+        del segs, outs
+        check_reference(torch, np, cfg, state, seed, phase="port_remainder",
+                        part="fast_norm_reference", fast_norm=True)
+
+        # (c) the 'gn' backbone: the model card against CPU in float32 (phase
+        # reference's tolerance), its stage 2, one timed training step
+        gn_cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, norm="gn"))
+        gn_state = random_state_dict(gn_cfg, seed)
+        check_reference(torch, np, gn_cfg, gn_state, seed, phase="port_remainder",
+                        part="gn_reference")
+        seg = SegmenterInference(gn_cfg, gn_state, dtype=torch.bfloat16)
+        seconds, gn_masks, gn_launches = stage2_run(torch, seg, frames[:8],
+                                                    os.path.join(tmp, "gn"), wrappers)
+        del seg
+        gn = gn_train_step(torch, np, seed)
+        emit({"phase": "port_remainder", "part": "gn", "stage2_frames": 8,
+              "stage2_frames_per_s": 8 / seconds,
+              "stage2_masks_txt_lines": len(gn_masks.decode().splitlines()),
+              "stage2_launches": gn_launches, "train": gn})
+        if any(v == 0 for v in gn_launches.values()):
+            problems.append(f"gn stage 2: a kernel never launched: {gn_launches}")
+        if not gn["ok"]:
+            problems.append(f"gn training step: {gn}")
+        launches["gn_stage2"] = gn_launches
+
+        # (d) the 'random' appearance encoder
+        rnd = random_encoder_ips(torch, np, seed, wrappers, tmp)
+        emit({"phase": "port_remainder", "part": "random_encoder", **rnd})
+        if not rnd["ok"]:
+            problems.append(f"random encoder: card and CPU disagree, or too few tubes: {rnd}")
+        launches["random_encoder_ips"] = rnd["launches"]
+
+        # (e) JAX exports
+        exp = jax_export_roundtrip(torch, np, cfg, state, seed, tmp)
+        emit({"phase": "port_remainder", "part": "jax_export", **exp})
+        if not exp["ok"]:
+            problems.append(f"JAX export: {exp}")
+
+        # (f) the study tools
+        parity, stress, tool_launches, tool_problems = study_tools(torch, np, seed, wrappers,
+                                                                   dev, tmp)
+        emit({"phase": "port_remainder", "part": "assigner_parity", **parity})
+        emit({"phase": "port_remainder", "part": "stress_reference_scale", **stress})
+        problems += tool_problems
+        launches.update(tool_launches)
+    emit({"phase": "port_remainder", "ok": not problems, "problems": problems,
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    if problems:
+        fail("port_remainder: " + "; ".join(problems))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3430,7 +3973,8 @@ def main(argv=None) -> int:
     # B1 and B2 at the 4-window batch's shapes (8 frames), TF32 off as set
     # for phase 3
     wrappers = fpn.KERNEL_WRAPPERS + fusion.KERNEL_WRAPPERS
-    launches, wpb_launches = run_stage2(torch, np, cfg, state, args.seed, wrappers)
+    launches, wpb_launches, stage2_masks = run_stage2(torch, np, cfg, state, args.seed,
+                                                      wrappers)
     wpb_fpn = check_fpn(torch, gen, dev, B=8, H=96, W=120, at="stage2_wpb4")
     wpb_fusion = check_fusion(torch, gen, dev, float(clock) * 1e6, N=8, h=96, w=120,
                               ori=(360, 480), inputs=("smoke",), at="stage2_wpb4")
@@ -3493,7 +4037,14 @@ def main(argv=None) -> int:
     md_launches, md_per_replica = run_multi_device(torch, np, args.seed, wrappers,
                                                    cfg, state, dev)
 
-    # 16. the kernels line and the result
+    # 16. the rest of the JAX package: int8 weights, fast_norm, the 'gn'
+    # backbone, the 'random' encoder, JAX exports, the study tools (each
+    # serving path's launch counts are zeroed just before it and read just
+    # after)
+    rest_launches = run_port_remainder(torch, np, args.seed, wrappers, cfg, state,
+                                       stage2_masks, dev)
+
+    # 17. the kernels line and the result
     spec = [("fpn_lateral", fpn.lateral_stats, "openpvsg_torch/csrc/fpn.cu",
              "openpvsg_tpu/ops/pallas/fpn_kernel.py:140"),
             ("fpn_conv3x3", fpn.conv3x3_stats, "openpvsg_torch/csrc/fpn.cu",
@@ -3572,6 +4123,8 @@ def main(argv=None) -> int:
             f32 = fpn_rows[(name, "float32")]
             entry.update(f32_max_abs_err=f32["max_abs_err"], f32_ms=f32["ms"],
                          f32_plain_ms=f32["plain_ms"], f32_bound_ms=f32["bound_ms"])
+        entry.update(port_remainder_launches={path: counts[fn.__name__]
+                                              for path, counts in rest_launches.items()})
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,12 +3,10 @@
 ``RelationHeadConfig``, the data pipeline's ``DataConfig``, their presets,
 and the ``config.json`` and ``--set key=value`` plumbing of the CLIs.
 
-The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults),
-so a configuration reads the same in both packages. Two fields are left
-out: int8 weights, whose module is not ported, and the pixel decoder's
-``strides``, which neither package reads. ``load_config_file`` reads a
-``config.json`` of the JAX package when each holds its JAX default and
-raises naming the first that does not. ``check_training_config`` accepts
+The port's own copy of ``openpvsg_tpu.config`` (same names, same defaults,
+the same fields), so a configuration reads the same in both packages and
+``load_config_file`` reads every ``config.json`` of the JAX package.
+``check_training_config`` accepts
 every training value of ``Mask2FormerConfig`` that the JAX package accepts
 (the compute dtype float32 or bfloat16 among them) and raises the JAX
 package's errors for the invalid ones.
@@ -30,7 +28,8 @@ class BackboneConfig:
     depth: int = 50
     swin_variant: str = "tiny"  # tiny | small | base
     # 'frozen_bn' / 'sync_bn' run BatchNorm with running statistics at
-    # inference; 'folded' means the BN affine is folded into the convs.
+    # inference; 'gn' a 32-group GroupNorm; 'folded' means the BN affine is
+    # folded into the convs.
     norm: str = "frozen_bn"
     out_indices: Tuple[int, ...] = (0, 1, 2, 3)
     dtype: str = "float32"  # compute dtype; params always float32
@@ -39,6 +38,9 @@ class BackboneConfig:
 @dataclass(frozen=True)
 class PixelDecoderConfig:
     in_channels: Tuple[int, ...] = (256, 512, 1024, 2048)
+    # the backbone strides of ``in_channels``, as in the JAX schema; neither
+    # package reads them
+    strides: Tuple[int, ...] = (4, 8, 16, 32)
     feat_channels: int = 256
     out_channels: int = 256
     num_outs: int = 3
@@ -97,6 +99,10 @@ class Mask2FormerConfig:
     # storage dtype of the per-layer mask logits: 'float32' | 'bfloat16'
     # (float32 accumulation; the trainer's GT masks follow it)
     mask_logits_dtype: str = "float32"
+    # serving only: backbone and pixel-decoder kernels held as int8 with
+    # per-output-channel scales, dequantized inside every forward
+    # (``utils/quantize.py``, ``infer/segmenter.py``); training ignores it
+    int8_weights: bool = False
     num_points: int = 12544
     oversample_ratio: float = 3.0
     importance_sample_ratio: float = 0.75
@@ -308,15 +314,6 @@ PRESETS = {
     "relation_conv_large": relation_conv_large,
 }
 
-# Fields of the JAX package's schema that the port leaves out, with the JAX
-# default each must hold in a config.json the port reads, and the ROADMAP.md
-# item that ports its module.
-JAX_ONLY_FIELDS: Dict[str, Tuple[Any, str]] = {
-    "model.pixel_decoder.strides": ([4, 8, 16, 32], "A12"),
-    "model.int8_weights": (False, "A12"),
-}
-
-
 def get_config(name: str) -> PVSGConfig:
     """A preset name, or the path of a ``config.json`` (``save_config``; the
     train CLI writes one into its work directory)."""
@@ -355,34 +352,16 @@ def _dataclass_from_dict(cls, d: Dict[str, Any]):
 
 
 def save_config(cfg: PVSGConfig, path: str) -> None:
-    """Write ``cfg`` as JSON in the JAX package's schema (the fields the
-    port has; ``openpvsg_tpu.config.load_config_file`` fills the rest with
-    its defaults)."""
+    """Write ``cfg`` as JSON in the JAX package's schema."""
     with open(path, "w") as f:
         json.dump(config_to_dict(cfg), f, indent=1)
 
 
-def _lookup(d: Dict[str, Any], dotted: str):
-    for part in dotted.split("."):
-        if not isinstance(d, dict) or part not in d:
-            return None, False
-        d = d[part]
-    return d, True
-
-
 def load_config_file(path: str) -> PVSGConfig:
     """Read a ``config.json`` written by ``save_config`` or by the JAX
-    package's ``tools/train.py``. A field the port leaves out
-    (``JAX_ONLY_FIELDS``) must hold its JAX default; otherwise this raises
-    ValueError naming the field."""
+    package's ``tools/train.py``: the two packages share the schema."""
     with open(path) as f:
         d = json.load(f)
-    for name, (default, item) in JAX_ONLY_FIELDS.items():
-        value, present = _lookup(d, name)
-        if present and value != default:
-            raise ValueError(
-                f"{path}: {name}={value!r} is not ported to openpvsg_torch "
-                f"(only the JAX default {default!r}); ROADMAP.md {item} ports it")
     return _dataclass_from_dict(PVSGConfig, d)
 
 

@@ -5,10 +5,10 @@ reference tooling).
 masks.txt line format: ``frame id cid imh imw rle``.
 
 A ``query_feats.pickle`` written by ``openpvsg_tpu`` names the class
-``openpvsg_tpu.tracker.tubes.SimpleTube``. ``load_pickle`` reads it as the
-port's ``openpvsg_torch.tracker.tubes.SimpleTube`` (same attributes), so
-reading it never imports the JAX package, and refuses every other
-``openpvsg_tpu`` path.
+``openpvsg_tpu.tracker.tubes.SimpleTube`` (VPS) or ``QueryFeatTube`` (IPS).
+``load_pickle`` reads each as the port's class of the same name in
+``openpvsg_torch.tracker.tubes`` (same attributes), so reading it never
+imports the JAX package, and refuses every other ``openpvsg_tpu`` path.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from typing import Dict, List, Sequence, Tuple
 from openpvsg_torch.data import rle as rle_codec
 
 _JAX_PACKAGE = "openpvsg_tpu"
-_TUBE_CLASS = ("openpvsg_tpu.tracker.tubes", "SimpleTube")
+_TUBE_MODULE = "openpvsg_tpu.tracker.tubes"
+_TUBE_CLASSES = ("SimpleTube", "QueryFeatTube")
 
 
 def write_masks_txt(path: str,
@@ -75,14 +76,15 @@ def save_pickle(path: str, data):
 
 class _PortUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
-        if (module, name) == _TUBE_CLASS:
-            from openpvsg_torch.tracker.tubes import SimpleTube
+        if module == _TUBE_MODULE and name in _TUBE_CLASSES:
+            from openpvsg_torch.tracker import tubes
 
-            return SimpleTube
+            return getattr(tubes, name)
         if module.split(".")[0] == _JAX_PACKAGE:
             raise pickle.UnpicklingError(
-                f"{module}.{name}: the only class of {_JAX_PACKAGE} that "
-                f"openpvsg_torch reads is {'.'.join(_TUBE_CLASS)}")
+                f"{module}.{name}: the only classes of {_JAX_PACKAGE} that "
+                f"openpvsg_torch reads are {_TUBE_MODULE}."
+                f"{{{','.join(_TUBE_CLASSES)}}}")
         return super().find_class(module, name)
 
 

@@ -26,6 +26,7 @@ one replica.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +40,7 @@ from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.models.resnet import fold_frozen_bn
 from openpvsg_torch.parallel.mesh import replicate, split_blocks
 from openpvsg_torch.parallel.sp import gather, pad_frames_for_mesh
+from openpvsg_torch.utils.quantize import dequantize, quantize_state_int8
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,6 +95,13 @@ class SegmenterInference:
     bfloat16). ``device=None`` means the GPU and raises when there is none;
     pass ``device="cpu"`` to run on the CPU. With ``mesh`` the frames are
     split over its 'data' axis and the device is the mesh's first.
+
+    ``int8_weights`` (None: ``cfg.int8_weights``) quantizes the backbone and
+    pixel-decoder kernels after the fold (``utils/quantize.py``): the model
+    drops those weights, each device holds their int8 tensors and scales,
+    and every forward dequantizes them to ``dtype`` and runs the model on
+    them (``torch.func.functional_call``); kernel B1 takes the dequantized
+    stride-4 weights.
     """
 
     MEAN = (123.675, 116.28, 103.53)
@@ -100,7 +109,8 @@ class SegmenterInference:
 
     def __init__(self, cfg: Mask2FormerConfig, state_dict: Dict[str, torch.Tensor],
                  dtype: torch.dtype = torch.float32, device=None,
-                 pad_divisor: int = 32, fold_bn: bool = True, mesh=None):
+                 pad_divisor: int = 32, fold_bn: bool = True, mesh=None,
+                 int8_weights: Optional[bool] = None):
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.first:
                 raise ValueError(f"device {device} is not the mesh's first, {mesh.first}")
@@ -116,13 +126,34 @@ class SegmenterInference:
         self.dtype = dtype
         self.pad_divisor = pad_divisor
         self.mesh = mesh
+        # weights-only int8 (utils/quantize.py), after the fold: the folded
+        # kernels are the ones quantized (openpvsg_tpu/infer/segmenter.py:121)
+        self.int8_weights = (cfg.int8_weights if int8_weights is None
+                             else int8_weights)
+        quantized = {}
+        if self.int8_weights:
+            state_dict, quantized = quantize_state_int8(
+                state_dict, scopes=("backbone", "pixel_decoder"))
         model = Mask2Former(cfg)
+        for key in quantized:  # the model keeps no copy of a quantized weight
+            owner, name = key.rsplit(".", 1)
+            del model.get_submodule(owner)._parameters[name]
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.replicas = [self.model] if mesh is None else replicate(self.model, mesh)
+        devices = [next(m.parameters()).device for m in self.replicas]
         self._norm = [(torch.tensor(self.MEAN, dtype=torch.float32, device=dev),
                        torch.tensor(self.STD, dtype=torch.float32, device=dev))
-                      for dev in (next(m.parameters()).device for m in self.replicas)]
+                      for dev in devices]
+        # the int8 weights and their scales, one copy on each replica's device
+        self._q8 = [{k: (q.to(dev), s.to(dev)) for k, (q, s) in quantized.items()}
+                    for dev in devices]
+        if quantized:
+            n_elems = sum(q.numel() for q, _ in quantized.values())
+            logging.getLogger(__name__).info(
+                "int8 weights: %d kernels quantized, %.1f MB of device memory "
+                "saved (from %s)", len(quantized),
+                n_elems * (dtype.itemsize - 1) / 1e6, dtype)
 
     def _padded_hw(self, frames) -> Tuple[int, int]:
         return pad_to_divisor(*frames.shape[1:3], self.pad_divisor)
@@ -149,8 +180,20 @@ class SegmenterInference:
         x = (x.float() - mean) / std
         h, w = x.shape[1:3]
         ph, pw = self._padded_hw(frames)
-        x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h))
-        return self.replicas[i](x.to(self.dtype))
+        x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
+        if not self._q8[i]:
+            return self.replicas[i](x)
+        # dequantized inside every forward, as JAX does inside its jit: only
+        # the int8 tensors stay resident between calls
+        weights = {k: dequantize(q, s, self.dtype) for k, (q, s) in self._q8[i].items()}
+        return torch.func.functional_call(self.replicas[i], weights, (x,))
+
+    def weight_bytes(self) -> int:
+        """Bytes of the weights resident on the first device: the model's
+        parameters and buffers, and the int8 tensors and their scales."""
+        tensors = [*self.model.parameters(), *self.model.buffers(),
+                   *(t for pair in self._q8[0].values() for t in pair)]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def _fuse(self, i: int, cls_logits, mask_logits, padded_hw, ori_hw):
         """Replica i's panoptic fusion (kernel B2) on its device."""

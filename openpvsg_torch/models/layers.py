@@ -17,6 +17,16 @@ trainer's, each follows flax's mixed precision over float32 parameters
 Autograd carries the gradients back through each cast to the float32
 parameters, so the optimizer, the clip and the checkpoints see float32
 only. Module names and state dicts are those of the torch modules.
+
+``fast_norm`` (False by default; ``Mask2Former.fast_norm`` sets it) makes
+``LayerNorm`` and ``GroupNorm`` take their statistics in the compute dtype
+(the input's when there is none), as flax computes them with
+``force_float32_reductions=False``: ``var = E[x^2] - E[x]^2`` in that dtype,
+clipped at 0 (``flax.linen.normalization._compute_stats`` with
+``use_fast_variance``), then ``(x - mean) * (rsqrt(var + eps) * scale) +
+bias`` with float32 scale and bias (``_normalize``). Neither torch's
+two-pass variance nor ``F.layer_norm`` (which accumulates bfloat16 in
+float32 on CUDA) computes that.
 """
 from __future__ import annotations
 
@@ -59,11 +69,29 @@ class Conv(nn.Conv2d):
                                   _cast(self.bias, dt))
 
 
+def fast_normalize(x: torch.Tensor, dims, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax's normalization with its statistics in ``dtype`` (None: x's):
+    the mean and the mean of squares of x in that dtype (each a float32
+    sum rounded to it, as ``jnp.mean`` computes), ``var = max(0, E[x^2] -
+    E[x]^2)`` in it, then the float32 affine; returns ``dtype``. ``weight``
+    and ``bias`` broadcast against x."""
+    dt = dtype or x.dtype
+    xs = x.to(dt)
+    mean = xs.mean(dims, keepdim=True)
+    var = torch.clamp((xs * xs).mean(dims, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps).float() * weight.float()
+    return ((x - mean) * mul + bias.float()).to(dt)
+
+
 class LayerNorm(nn.LayerNorm):
     compute_dtype: Optional[torch.dtype] = None
+    fast_norm = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.fast_norm:
+            return fast_normalize(x, (-1,), self.weight, self.bias, self.eps, dt)
         if dt is None:
             return super().forward(x)
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
@@ -72,9 +100,16 @@ class LayerNorm(nn.LayerNorm):
 
 class GroupNorm(nn.GroupNorm):
     compute_dtype: Optional[torch.dtype] = None
+    fast_norm = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.fast_norm:  # x (N, C, ...): the groups' statistics
+            N, C = x.shape[:2]
+            g = x.reshape(N, self.num_groups, C // self.num_groups, *x.shape[2:])
+            view = (1, self.num_groups, C // self.num_groups) + (1,) * (x.ndim - 2)
+            return fast_normalize(g, tuple(range(2, g.ndim)), self.weight.view(view),
+                                  self.bias.view(view), self.eps, dt).reshape(x.shape)
         if dt is None:
             return super().forward(x)
         return F.group_norm(x.float(), self.num_groups, self.weight,

@@ -38,7 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from openpvsg_torch.config import Mask2FormerConfig
-from openpvsg_torch.models.layers import Conv, Dense, LayerNorm
+from openpvsg_torch.models.layers import Conv, Dense, GroupNorm, LayerNorm
 from openpvsg_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from openpvsg_torch.models.position_encoding import (sine_pos_encoding,
                                                      sine_pos_encoding_3d)
@@ -147,9 +147,15 @@ class Mask2Former(nn.Module):
     """Backbone + pixel decoder + transformer head (``backbone``,
     ``pixel_decoder``, ``head``, and ``sem_seg_head`` with
     ``with_sem_seg``, as in the flax tree). ``train`` selects the training
-    forward, as the flax module's attribute does."""
+    forward, as the flax module's attribute does. ``fast_norm`` (also
+    settable later) makes the pixel decoder's and the head's LayerNorms and
+    GroupNorms take their statistics in the compute dtype, as flax's
+    ``Mask2Former(fast_norm=True)`` does (``models/layers.py``); the
+    stride-4 chain's GroupNorms on the serving path are kernel B1's, whose
+    statistics are float32, as in the JAX package's fused kernel."""
 
-    def __init__(self, cfg: Mask2FormerConfig, train: bool = False):
+    def __init__(self, cfg: Mask2FormerConfig, train: bool = False,
+                 fast_norm: bool = False):
         super().__init__()
         self.cfg = cfg
         self.train_mode = train
@@ -168,6 +174,19 @@ class Mask2Former(nn.Module):
         if cfg.with_sem_seg:
             self.sem_seg_head = Conv(cfg.pixel_decoder.out_channels,
                                      cfg.num_classes + 1, 1)
+        self.fast_norm = fast_norm
+
+    @property
+    def fast_norm(self) -> bool:
+        return self._fast_norm
+
+    @fast_norm.setter
+    def fast_norm(self, on: bool) -> None:
+        self._fast_norm = bool(on)
+        for part in (self.pixel_decoder, self.head):
+            for m in part.modules():
+                if isinstance(m, (LayerNorm, GroupNorm)):
+                    m.fast_norm = self._fast_norm
 
     def forward(self, images: torch.Tensor, return_sem_seg: bool = False):
         """Inference: images (N, H, W, 3) normalized frames, each run with

@@ -12,8 +12,10 @@ Module names follow the flax tree (``conv1``, ``bn1.bn``, ``layer1_0.conv2``,
 channels-last memory.
 
 Norms: 'frozen_bn' and 'sync_bn' both use running statistics at inference
-(eps 1e-5, ``openpvsg_tpu/models/resnet.py:51``); 'folded' is the serving
-form whose BN affines were folded into the convs by ``fold_frozen_bn``.
+(eps 1e-5, ``openpvsg_tpu/models/resnet.py:51``); 'gn' is a 32-group
+GroupNorm (eps 1e-6), in training and serving alike; 'folded' is the
+serving form whose BN affines were folded into the convs by
+``fold_frozen_bn``.
 With ``train=True``, 'sync_bn' normalizes by the batch statistics over
 (N, H, W) and updates the running statistics as flax does (momentum 0.9,
 the *biased* batch variance); 'frozen_bn' keeps its running statistics in
@@ -33,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from openpvsg_torch.models.layers import Conv
+from openpvsg_torch.models.layers import Conv, GroupNorm
 from openpvsg_torch.parallel.mesh import all_reduce_sum
 
 # 26 = one bottleneck per stage (test/debug scale)
@@ -42,6 +44,7 @@ STAGE_BLOCKS = {18: (2, 2, 2, 2), 26: (1, 1, 1, 1), 34: (3, 4, 6, 3),
 # depths built from BasicBlock (two 3x3 convs, expansion 1)
 BASIC_DEPTHS = (18, 34)
 BN_EPS = 1e-5
+GN_EPS = 1e-6  # flax's GroupNorm default
 BN_MOMENTUM = 0.9  # flax: ra = momentum * ra + (1 - momentum) * batch
 
 
@@ -176,18 +179,26 @@ def set_process_group(model: nn.Module, group) -> None:
 
 class Norm(nn.Module):
     """frozen_bn (running statistics) | sync_bn (batch statistics when
-    ``train``) | folded (identity)."""
+    ``train``) | gn (``GroupNorm(32)`` at flax's eps of 1e-6 under the flax
+    name ``gn``, ``openpvsg_tpu/models/resnet.py:45-46``: no running
+    statistics, nothing to fold, no statistics across ranks) | folded
+    (identity)."""
 
     def __init__(self, kind: str, channels: int, train: bool = False):
         super().__init__()
-        if kind not in ("frozen_bn", "sync_bn", "folded"):
-            raise ValueError(f"backbone norm '{kind}' is not ported")
+        if kind not in ("frozen_bn", "sync_bn", "gn", "folded"):
+            raise ValueError(f"backbone norm '{kind}': 'frozen_bn', 'sync_bn', "
+                             "'gn' or 'folded'")
         self.kind = kind
-        if kind != "folded":
+        if kind == "gn":
+            self.gn = GroupNorm(32, channels, eps=GN_EPS)
+        elif kind != "folded":
             self.bn = BatchNorm(channels,
                                 batch_stats=train and kind == "sync_bn")
 
     def forward(self, x):
+        if self.kind == "gn":
+            return self.gn(x)
         return x if self.kind == "folded" else self.bn(x)
 
 
@@ -312,8 +323,9 @@ def fold_frozen_bn(state_dict: Dict[str, torch.Tensor],
     BN(conv(x)) = conv(x) * s + b with s = gamma / sqrt(var + eps) and
     b = beta - mean * s, i.e. a conv with weight * s (per output channel)
     and bias b. Returns a new state dict for the same model built with
-    backbone norm 'folded'; the BN entries are consumed. Same arithmetic as
-    ``openpvsg_tpu.models.resnet.fold_frozen_bn`` (float32)."""
+    backbone norm 'folded'; the BN entries are consumed. The same float32
+    arithmetic as ``openpvsg_tpu.models.resnet.fold_frozen_bn``: the folded
+    weights equal JAX's bit for bit."""
     out = dict(state_dict)
     for key in state_dict:
         if not (key.startswith(prefix) and key.endswith(".weight")):
@@ -327,7 +339,10 @@ def fold_frozen_bn(state_dict: Dict[str, torch.Tensor],
         beta = state_dict[f"{bn}.bias"].float()
         mean = state_dict[f"{bn}.running_mean"].float()
         var = state_dict[f"{bn}.running_var"].float()
-        scale = gamma / torch.sqrt(var + eps)
+        # the float32 square root correctly rounded, as numpy's in the JAX
+        # package's fold (torch's CPU float32 sqrt is off by an ulp for
+        # about 0.5% of inputs; float64 rounded once to float32 is exact)
+        scale = gamma / torch.sqrt((var + eps).double()).float()
         out[key] = state_dict[key].float() * scale[:, None, None, None]
         out[f"{parent}.{name}.bias"] = beta - mean * scale
         for leaf in ("weight", "bias", "running_mean", "running_var"):

@@ -178,15 +178,16 @@ def load_relation_params(checkpoint: str, model_name: str, device, cfg=None):
     """A ``RelationModel`` (``cfg``, a ``RelationHeadConfig``, gives its
     capacity; the preset's defaults without one) on ``device`` with the
     weights of ``checkpoint``: a port relation checkpoint (the ``epoch_N``
-    files of ``rel_train``) or the reference's ``.pth`` bundle
-    (``train/checkpoint.py:load_relation_state``)."""
+    files of ``rel_train``), the reference's ``.pth`` bundle or a ``.npz``
+    of ``export_jax_checkpoint.py`` (``train/checkpoint.py:load_relation_state``)."""
     from openpvsg_torch.config import RelationHeadConfig
     from openpvsg_torch.models.relation.heads import RelationModel
     from openpvsg_torch.train.checkpoint import load_relation_state
 
     model = RelationModel.from_config(cfg or RelationHeadConfig(),
                                       model_name=model_name)
-    model.load_state_dict(load_relation_state(checkpoint, model_name), strict=True)
+    model.load_state_dict(load_relation_state(checkpoint, model_name, cfg=cfg),
+                          strict=True)
     return model.to(device).eval()
 
 

@@ -16,7 +16,8 @@ and ``query_feats.pickle``, with per-stage timing in the log.
 
 ``--checkpoint`` is an ``epoch_N`` file of the port's train CLI;
 ``--relation-checkpoint`` an ``epoch_N`` file of ``rel_train`` or the
-reference's relation ``.pth`` bundle; ``--appearance-checkpoint`` (IPS) a
+reference's relation ``.pth`` bundle (either also a ``.npz`` of the
+JAX package's checkpoint, written by ``export_jax_checkpoint.py``); ``--appearance-checkpoint`` (IPS) a
 torchvision ResNet state dict for the configured appearance encoder.
 Without them the weights are random, from ``--seed``, with a warning. The
 segmenter runs in bfloat16 on the GPU and in float32 on the CPU
@@ -115,7 +116,7 @@ def main(argv=None):
 
     # --- segmenter
     if args.checkpoint:
-        state = load_model_state(args.checkpoint)
+        state = load_model_state(args.checkpoint, cfg.model)
     else:
         state = random_state_dict(cfg.model, args.seed)
         logger.warning("no segmenter checkpoint: random weights")

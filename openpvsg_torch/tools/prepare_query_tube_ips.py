@@ -8,7 +8,8 @@ tracking -> ``{work_dir}/{split}_save_qf/{vid}/quantitive/masks.txt`` and
       --checkpoint work_dirs/mask2former_ips/epoch_8 \\
       --appearance-checkpoint resnet50.pth
 
-``--checkpoint`` is an ``epoch_N`` file of the port's train CLI;
+``--checkpoint`` is an ``epoch_N`` file of the port's train CLI or a
+``.npz`` of the JAX package's checkpoint (``export_jax_checkpoint.py``);
 ``--appearance-checkpoint`` a torchvision ResNet state dict (``.pth``) for
 the ``imagenet50 s3`` encoder (``tracker.*`` settings pick another). Without
 them the weights are random (with a warning). The segmenter runs in
@@ -75,7 +76,7 @@ def main(argv=None):
     logger.info(f"{len(videos)} videos")
 
     if args.checkpoint:
-        state = load_model_state(args.checkpoint)
+        state = load_model_state(args.checkpoint, cfg.model)
     else:
         state = random_state_dict(cfg.model, 0)
         logger.warning("no checkpoint: random weights")

@@ -8,7 +8,8 @@ ego4d, this iterates every source): per-video windowed MinVIS inference ->
       --data-dir data --anno-file data/pvsg.json --work-dir work_dirs \\
       --split val --checkpoint work_dirs/mask2former_vps/epoch_8
 
-``--checkpoint`` is an ``epoch_N`` file of the port's train CLI; without one
+``--checkpoint`` is an ``epoch_N`` file of the port's train CLI or a ``.npz``
+of the JAX package's checkpoint (``export_jax_checkpoint.py``); without one
 the weights are random (with a warning). The forward runs in bfloat16 on
 the GPU and in float32 on the CPU. The run ends with a ``summary:`` log line
 as the IPS CLI's.
@@ -60,7 +61,7 @@ def main(argv=None):
     window = args.window or cfg.data.ref_seq_len_test
 
     if args.checkpoint:
-        state = load_model_state(args.checkpoint)
+        state = load_model_state(args.checkpoint, cfg.model)
     else:
         state = random_state_dict(cfg.model, 0)
         logger.warning("no checkpoint: random weights")

@@ -6,8 +6,9 @@ R@K / mR@K on the ``relations.pickle`` GT of a split.
       --anno-file data/pvsg.json --work-dir work_dirs --split val \\
       --checkpoint work_dirs/relation/rel_ips_transformer_lr0.0001/epoch_100
 
-``--checkpoint`` is an ``epoch_N`` file of the port's ``rel_train`` or the
-reference's four-model relation ``.pth`` bundle; ``--set relation.*``
+``--checkpoint`` is an ``epoch_N`` file of the port's ``rel_train``, the
+reference's four-model relation ``.pth`` bundle or a ``.npz`` of the JAX
+package's checkpoint (``export_jax_checkpoint.py``); ``--set relation.*``
 gives the model's capacity. The printed lines are the JAX tool's. The model
 runs on the GPU unless ``--device cpu``; with two or more GPUs visible (and
 no ``--device``) as ``TimeShardedRelation`` over a ``(data, time)`` mesh of

@@ -6,7 +6,8 @@ video scored by window VPQ (``eval/vpq.py:window_vpq``).
   python -m openpvsg_torch.tools.test --config work_dirs/mask2former_vps/config.json \\
       --checkpoint work_dirs/mask2former_vps/epoch_8 --eval PQ,VPQ
 
-``--checkpoint`` is an ``epoch_N`` file of the port's train CLI; without
+``--checkpoint`` is an ``epoch_N`` file of the port's train CLI or a
+``.npz`` of the JAX package's checkpoint (``export_jax_checkpoint.py``); without
 one the weights are random (with a warning). The forward runs in bfloat16
 on the GPU and in float32 on the CPU. Two batches are in flight: the next
 batch's upload and forward run while the host packages this one. As in the
@@ -62,7 +63,7 @@ def main(argv=None):
             "model.num_things_classes / model.num_stuff_classes to match")
 
     if args.checkpoint:
-        state = load_model_state(args.checkpoint)
+        state = load_model_state(args.checkpoint, cfg.model)
     else:
         state = random_state_dict(cfg.model, 0)
         logger.warning("no checkpoint given: evaluating random weights")

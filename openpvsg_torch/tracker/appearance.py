@@ -15,6 +15,8 @@ arithmetic.
 """
 from __future__ import annotations
 
+import itertools
+
 from typing import Tuple
 
 import numpy as np
@@ -81,7 +83,7 @@ def extract_object_embeddings(model: torch.nn.Module, frame, masks,
     pixel features, valid (N, max_pixels) bool), on the model's device."""
     from openpvsg_torch.train.segmenter import ieee_float32
 
-    dev = next(model.parameters()).device
+    dev = next(itertools.chain(model.parameters(), model.buffers())).device
     with ieee_float32():
         x = _tensor(frame, dev).float() / 255.0
         x = ((x - torch.tensor(IMAGENET_MEAN, device=dev))

@@ -24,8 +24,16 @@ state dict converts with ``convert_mmdet_swin`` into the port's
 ``SwinTransformer`` names. The reference's four-model relation ``.pth``
 bundle converts with ``convert_relation_bundle`` into the port's
 ``RelationModel`` state dict; ``load_relation_state`` reads either that
-bundle or a ``save_relation_checkpoint`` file. Loading the JAX package's
-msgpack checkpoints is not ported (ROADMAP.md A9).
+bundle or a ``save_relation_checkpoint`` file.
+
+The JAX package's own checkpoints are orbax ``StandardCheckpointer``
+directories, which only JAX and orbax read. ``export_jax_checkpoint.py`` (at
+the root of the repository, run where JAX is installed) writes their
+weights to one ``.npz`` of ``/``-joined flax paths; ``load_jax_export``
+reads it into the port's state dict of a segmenter or a relation head, and
+``load_model_state`` and ``load_relation_state`` take such a file in place
+of a port checkpoint. Resuming a JAX training state with its optimizer's
+moments is not supported.
 """
 from __future__ import annotations
 
@@ -86,11 +94,106 @@ def load_relation_checkpoint(path: str, trainer) -> None:
     trainer.rng.setstate((version, tuple(internal), gauss))
 
 
-def load_model_state(path: str):
+def load_model_state(path: str, cfg=None):
     """The model's state dict (float32, with the BN running statistics) of
     a ``SegmenterTrainer`` checkpoint, on the CPU: what ``SegmenterInference``
-    takes (it folds the BN)."""
+    takes (it folds the BN). A ``.npz`` written by
+    ``export_jax_checkpoint.py`` is read by ``load_jax_export`` for ``cfg``
+    (the ``Mask2FormerConfig`` it was trained with)."""
+    if path.endswith(".npz"):
+        return load_jax_export(path, cfg)
     return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
+
+JAX_EXPORT_FORMAT = "openpvsg-jax-export"
+JAX_EXPORT_VERSION = 1
+
+
+def _flatten_jax_tree(tree, prefix):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            yield from _flatten_jax_tree(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def write_jax_export(tree: dict, out: str, source: str = "") -> dict:
+    """Write ``tree``, a JAX checkpoint's tree of host arrays, to ``out``,
+    the ``.npz`` that ``load_jax_export`` reads; returns the header. A tree
+    with ``batch_stats``, ``opt_state`` or ``step`` is a stage-1
+    ``TrainState`` (kind ``segmenter``); one with only ``params`` is a
+    relation checkpoint (kind ``relation``). Only ``params`` and
+    ``batch_stats`` are written, as arrays named by their ``/``-joined flax
+    paths, beside a JSON ``__header__``."""
+    import json
+
+    if "params" not in tree:
+        raise ValueError(f"{source or 'tree'}: no 'params' in the checkpoint "
+                         f"(keys {sorted(tree)})")
+    kind = ("segmenter" if {"batch_stats", "opt_state", "step"} & set(tree)
+            else "relation")
+    arrays = dict(_flatten_jax_tree(tree["params"], "params"))
+    if tree.get("batch_stats"):
+        arrays.update(_flatten_jax_tree(tree["batch_stats"], "batch_stats"))
+    step = tree.get("step")
+    header = {"format": JAX_EXPORT_FORMAT, "version": JAX_EXPORT_VERSION,
+              "kind": kind, "step": None if step is None else int(np.asarray(step)),
+              "source": source}
+    arrays["__header__"] = np.array(json.dumps(header))
+    tmp = out + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, out)
+    return header
+
+
+def load_jax_export(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The float32 state dict in a ``.npz`` of ``write_jax_export`` (which
+    ``export_jax_checkpoint.py`` runs on an orbax checkpoint):
+    a stage-1 checkpoint's ``params`` and ``batch_stats`` through
+    ``weights.from_jax_params`` for ``cfg``, a ``Mask2FormerConfig``, or a
+    relation checkpoint's ``params`` through
+    ``weights.relation_from_jax_params`` for ``cfg``, a
+    ``RelationHeadConfig`` (its ``model_name`` picks the temporal head).
+    Raises on a file of another format or kind, and on a key missing or
+    left over."""
+    import json
+
+    from openpvsg_torch.config import Mask2FormerConfig, RelationHeadConfig
+    from openpvsg_torch.weights import from_jax_params, relation_from_jax_params
+
+    with np.load(path, allow_pickle=False) as z:
+        if "__header__" not in z.files:
+            raise ValueError(f"{path}: no __header__; not written by "
+                             "export_jax_checkpoint.py")
+        header = json.loads(str(z["__header__"]))
+        tree: Dict[str, dict] = {}
+        for name in z.files:
+            if name == "__header__":
+                continue
+            *scope, leaf = name.split("/")
+            node = tree
+            for part in scope:
+                node = node.setdefault(part, {})
+            node[leaf] = z[name]
+    if header.get("format") != JAX_EXPORT_FORMAT:
+        raise ValueError(f"{path}: format {header.get('format')!r}, not "
+                         f"{JAX_EXPORT_FORMAT!r}")
+    kind = header.get("kind")
+    want = {"segmenter": Mask2FormerConfig, "relation": RelationHeadConfig}.get(kind)
+    if want is None:
+        raise ValueError(f"{path}: unknown kind {kind!r}")
+    if not isinstance(cfg, want):
+        raise ValueError(f"{path} holds a {kind} checkpoint: pass a "
+                         f"{want.__name__}, not {type(cfg).__name__}")
+    collections = {"segmenter": {"params", "batch_stats"}, "relation": {"params"}}[kind]
+    extra = sorted(set(tree) - collections)
+    if extra:
+        raise ValueError(f"{path}: a {kind} checkpoint holds {sorted(collections)}, "
+                         f"not {extra}")
+    if kind == "segmenter":
+        return from_jax_params(tree, cfg)
+    return relation_from_jax_params(tree.get("params", {}), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -306,14 +409,23 @@ RELATION_BUNDLE_PARTS = ("subject_encoder", "object_encoder",
 
 
 def load_relation_state(path: str, model_name: str = "transformer",
-                        trusted: bool = False) -> Dict[str, torch.Tensor]:
+                        trusted: bool = False, cfg=None) -> Dict[str, torch.Tensor]:
     """The float32 state dict of a ``RelationModel`` from either file: a
     ``save_relation_checkpoint`` file (its ``"model"`` entry) or the
     reference's relation ``.pth`` bundle (``{part: state_dict}`` for
     ``RELATION_BUNDLE_PARTS``, converted by ``convert_relation_bundle``
     for ``model_name``). Read on the CPU with ``weights_only=True``; a file
     that refuses it raises unless ``trusted=True``, as
-    ``load_mmdet_checkpoint``."""
+    ``load_mmdet_checkpoint``. A ``.npz`` of ``export_jax_checkpoint.py``
+    is read by ``load_jax_export`` for ``cfg`` (a ``RelationHeadConfig``;
+    the defaults without one) with ``model_name``."""
+    if path.endswith(".npz"):
+        import dataclasses
+
+        from openpvsg_torch.config import RelationHeadConfig
+
+        return load_jax_export(path, dataclasses.replace(
+            cfg or RelationHeadConfig(), model_name=model_name))
     obj = _torch_load(path, trusted)
     if not isinstance(obj, dict):
         raise ValueError(f"{path}: neither a relation checkpoint nor a "

@@ -662,3 +662,20 @@ def test_kernels_launch_on_their_tensors_device(dev):
     assert got[0].device == one and torch.cuda.current_device() == 0
     for a, b in zip(got, fusion.fusion_maps_plain(low, scores, (90, 110))):
         assert torch.equal(a, b.to(a.dtype))
+
+
+def test_int8_quantization_on_the_card_equals_the_cpu(dev):
+    """``quantize_int8`` and ``dequantize`` give the same bits on the card as
+    on the CPU (where they equal JAX's), on conv and linear shapes of the
+    model with values that round to every int8 code."""
+    from openpvsg_torch.utils.quantize import dequantize, quantize_int8
+
+    g = torch.Generator().manual_seed(5)
+    for shape in ((256, 64, 3, 3), (2048, 256), (64, 3, 7, 7), (1024, 256, 1, 1)):
+        w = torch.randn(shape, generator=g) * torch.rand(shape[0], *(1,) * (len(shape) - 1),
+                                                         generator=g)
+        q, s = quantize_int8(w)
+        qd, sd = quantize_int8(w.to(dev))
+        assert torch.equal(qd.cpu(), q) and torch.equal(sd.cpu(), s)
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequantize(qd, sd, dt).cpu(), dequantize(q, s, dt))

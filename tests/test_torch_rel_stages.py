@@ -176,14 +176,28 @@ def test_query_feats_read_across_packages(setup, tmp_path):
 
 
 def test_port_refuses_other_jax_classes(tmp_path):
+    """The JAX package's IPS tube, ``QueryFeatTube``, reads as the port's
+    class of that name with the same content; any other
+    class of the JAX package is still refused."""
+    from openpvsg_tpu.tracker.tracks import IdCounter
     from openpvsg_tpu.tracker.tubes import QueryFeatTube
     from openpvsg_torch.data import io as tio
+    from openpvsg_torch.tracker import tubes
 
     path = str(tmp_path / "qf.pickle")
+    tube = QueryFeatTube(2, 3, {"query_feat": np.arange(4.0), "cls_id": 7})
+    tube.update(None, 3)
     with open(path, "wb") as f:
-        pickle.dump([QueryFeatTube(1, 3, {"query_feat": np.zeros(4), "cls_id": 0})], f)
-    with pytest.raises(pickle.UnpicklingError, match="QueryFeatTube"):
-        tio.load_pickle(path)
+        pickle.dump([tube], f)
+    got = tio.load_pickle(path)
+    assert type(got[0]) is tubes.QueryFeatTube
+    assert (got[0].start_frame_id, got[0].track_id) == (2, 3)
+    _same(got[0].qf_tube, tube.qf_tube)
+    other = str(tmp_path / "other.pickle")
+    with open(other, "wb") as f:
+        pickle.dump(IdCounter(), f)
+    with pytest.raises(pickle.UnpicklingError, match="IdCounter"):
+        tio.load_pickle(other)
 
 
 def test_relation_dataset_matches_jax(rel_sets):

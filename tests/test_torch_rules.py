@@ -15,11 +15,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "openpvsg_tpu")
 
 
+# the root scripts of the JAX package, and the one root script of the port
+# that reads JAX checkpoints: it imports openpvsg_tpu and orbax by design
+JAX_ROOT_SCRIPTS = ("__graft_entry__.py", "bench.py")
+JAX_EXPORT_SCRIPT = "export_jax_checkpoint.py"
+
+
 def _port_files():
-    """The port's sources: chip_smoke.py, multi_gpu_torch.py and
-    openpvsg_torch/, without its git-ignored build/ directory (kernel
-    libraries and build outputs)."""
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "multi_gpu_torch.py")]
+    """The port's sources: the root scripts (chip_smoke.py,
+    multi_gpu_torch.py, profile_torch.py; every root script but the JAX
+    package's and the export script) and openpvsg_torch/ with its tools and
+    utils, without its git-ignored build/ directory (kernel libraries and
+    build outputs)."""
+    files = [os.path.join(REPO, n) for n in os.listdir(REPO)
+             if n.endswith(".py") and n not in JAX_ROOT_SCRIPTS + (JAX_EXPORT_SCRIPT,)]
     for root, dirs, names in os.walk(os.path.join(REPO, "openpvsg_torch")):
         dirs[:] = [d for d in dirs if d not in ("build", "__pycache__")]
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -37,19 +46,35 @@ def _module_names():
 
 
 def test_import_leaves_jax_out():
-    """A fresh interpreter imports the port, every submodule, chip_smoke
-    and multi_gpu_torch with no jax, flax or openpvsg_tpu module loaded."""
+    """A fresh interpreter imports the port, every submodule, chip_smoke,
+    multi_gpu_torch and profile_torch with no jax, flax or openpvsg_tpu
+    module loaded."""
     code = (
         "import importlib, sys\n"
         "pre = {m.split('.')[0] for m in sys.modules}\n"
         f"assert not pre & set({FORBIDDEN!r}), pre & set({FORBIDDEN!r})\n"
-        f"for m in {_module_names()!r} + ['chip_smoke', 'multi_gpu_torch']:\n"
+        f"for m in {_module_names()!r} + ['chip_smoke', 'multi_gpu_torch', 'profile_torch']:\n"
         "    importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_port_files_cover_the_new_modules_and_leave_out_only_the_export():
+    """The scans below cover every root script of the port, the port's
+    tools and utils/quantize.py; the export script is the one file of the
+    port outside them, and it is what reads orbax."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"chip_smoke.py", "multi_gpu_torch.py", "profile_torch.py",
+            "openpvsg_torch/utils/quantize.py"} <= rel
+    for tool in ("unzip_and_extract", "generate_video", "show_pred_results",
+                 "assigner_parity", "rel_capacity_study", "stress_reference_scale"):
+        assert f"openpvsg_torch/tools/{tool}.py" in rel
+    assert JAX_EXPORT_SCRIPT not in rel
+    with open(os.path.join(REPO, JAX_EXPORT_SCRIPT)) as f:
+        assert "orbax" in f.read()
 
 
 def test_ast_scan_finds_no_jax_import():
@@ -248,25 +273,29 @@ def test_relation_step_runs_in_ieee_float32():
 
 
 def test_query_feats_loader_maps_simple_tube_and_refuses_other_jax_classes(tmp_path):
-    """A pickle naming openpvsg_tpu's SimpleTube loads as the port's class,
-    in a fresh interpreter that never imports openpvsg_tpu; any other class
-    of the JAX package is refused. The pickles are written by hand (protocol
-    0 GLOBAL opcodes), so this test imports no JAX either."""
+    """Pickles naming openpvsg_tpu's SimpleTube (VPS) and QueryFeatTube (IPS)
+    load as the port's classes of the same names, in a fresh interpreter
+    that never imports openpvsg_tpu; any other class of the JAX package is
+    refused. The pickles are written by hand (protocol 0 GLOBAL opcodes), so
+    this test imports no JAX either."""
     simple = tmp_path / "simple.pickle"
     simple.write_bytes(b"copenpvsg_tpu.tracker.tubes\nSimpleTube\n.")
+    tube = tmp_path / "tube.pickle"
+    tube.write_bytes(b"copenpvsg_tpu.tracker.tubes\nQueryFeatTube\n.")
     other = tmp_path / "other.pickle"
-    other.write_bytes(b"copenpvsg_tpu.tracker.tubes\nQueryFeatTube\n.")
+    other.write_bytes(b"copenpvsg_tpu.tracker.tracks\nSTrack\n.")
     code = (
         "import pickle, sys\n"
         "from openpvsg_torch.data.io import load_pickle\n"
-        "from openpvsg_torch.tracker.tubes import SimpleTube\n"
+        "from openpvsg_torch.tracker.tubes import QueryFeatTube, SimpleTube\n"
         f"assert load_pickle({str(simple)!r}) is SimpleTube\n"
+        f"assert load_pickle({str(tube)!r}) is QueryFeatTube\n"
         "try:\n"
         f"    load_pickle({str(other)!r})\n"
         "except pickle.UnpicklingError as e:\n"
-        "    assert 'QueryFeatTube' in str(e), e\n"
+        "    assert 'STrack' in str(e), e\n"
         "else:\n"
-        "    raise AssertionError('QueryFeatTube was not refused')\n"
+        "    raise AssertionError('STrack was not refused')\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'openpvsg_tpu']\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)

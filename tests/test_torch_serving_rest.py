@@ -204,21 +204,24 @@ def test_windows_per_batch_match_serial_and_jax(segmenters, frame_files, tmp_pat
 
 def test_config_fields_load_and_change_nothing(segmenters, tmp_path):
     """A JAX ``config.json`` with ``fused_fpn`` True, ``max_per_image`` 50,
-    ``filter_low_score`` False and ``embed_no_decay`` False loads into the
-    port with those values, and a segmenter and a trainer built from it
-    give the defaults' outputs bit for bit. ``JAX_ONLY_FIELDS`` holds the
-    two fields neither package reads or whose module is not ported."""
+    ``filter_low_score`` False, ``embed_no_decay`` False, ``int8_weights``
+    True and other pixel-decoder ``strides`` loads into the port with those
+    values (the port has every field of the JAX schema), and a segmenter
+    (with ``int8_weights`` turned off, the one field here that selects
+    something: the int8 segmenter is held to JAX's in
+    tests/test_torch_remainder.py) and a trainer built from it give the
+    defaults' outputs bit for bit."""
     import dataclasses
 
     from openpvsg_torch.infer.segmenter import SegmenterInference
     from openpvsg_torch.train.segmenter import SegmenterTrainer, param_groups
     from openpvsg_torch.weights import from_jax_params
 
-    assert set(tcfg.JAX_ONLY_FIELDS) == {"model.pixel_decoder.strides",
-                                         "model.int8_weights"}
+    assert not hasattr(tcfg, "JAX_ONLY_FIELDS")
     jm = dataclasses.replace(
-        _tiny(jcfg), max_per_image=50, filter_low_score=False,
-        pixel_decoder=dataclasses.replace(_tiny(jcfg).pixel_decoder, fused_fpn=True))
+        _tiny(jcfg), max_per_image=50, filter_low_score=False, int8_weights=True,
+        pixel_decoder=dataclasses.replace(_tiny(jcfg).pixel_decoder, fused_fpn=True,
+                                          strides=(8, 16, 32, 64)))
     path = str(tmp_path / "config.json")
     jcfg.save_config(jcfg.PVSGConfig(
         model=jm, train=dataclasses.replace(jcfg.TrainConfig(), embed_no_decay=False)),
@@ -226,9 +229,11 @@ def test_config_fields_load_and_change_nothing(segmenters, tmp_path):
     cfg = tcfg.load_config_file(path)
     assert cfg.model.pixel_decoder.fused_fpn and cfg.model.max_per_image == 50
     assert not cfg.model.filter_low_score and not cfg.train.embed_no_decay
+    assert cfg.model.int8_weights and cfg.model.pixel_decoder.strides == (8, 16, 32, 64)
     _, variables, seg = segmenters
-    other = SegmenterInference(cfg.model, from_jax_params(variables, cfg.model),
-                               device="cpu")
+    state = from_jax_params(variables, cfg.model)
+    assert SegmenterInference(cfg.model, state, device="cpu").int8_weights
+    other = SegmenterInference(cfg.model, state, device="cpu", int8_weights=False)
     frames = np.random.default_rng(1).integers(0, 255, (3, H, W, 3), dtype=np.uint8)
     for a, b in zip(seg.forward_frames(frames), other.forward_frames(frames)):
         assert torch.equal(a, b)

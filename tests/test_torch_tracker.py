@@ -242,7 +242,8 @@ def _flax_shapes(tree):
 def test_make_encoder_matches_jax_for_every_zoo_entry():
     """Every ResNet entry: the port's parameter names and shapes are the
     JAX encoder's, and so are the down factor and the output shape (stride
-    and channels); 'random' and hrnet raise, an unknown name too."""
+    and channels); 'random' has no weights and JAX's down factor and output
+    shape; hrnet raises, an unknown name too."""
     from openpvsg_tpu.tracker import zoo as jzoo
     from openpvsg_torch.tracker import zoo
     from openpvsg_torch.weights import appearance_expected_shapes
@@ -271,8 +272,15 @@ def test_make_encoder_matches_jax_for_every_zoo_entry():
             assert (down, tuple(out[0].shape), shapes) == (jdown, jshape, jshapes), \
                 (model_type, remove)
     assert len(seen) == 8
-    with pytest.raises(NotImplementedError, match="A11b"):
-        zoo.make_encoder("random")
+    # 'random' (ported since A11b): no weights, JAX's down factor and output
+    # shape (its features are held to JAX's in tests/test_torch_remainder.py)
+    model, down = zoo.make_encoder("random")
+    jmodel, jdown = jzoo.make_encoder("random")
+    jout = jax.eval_shape(lambda: jmodel.apply({}, x))
+    out = model(torch.zeros(1, 40, 72, 3))
+    assert (down, tuple(out[0].shape)) == (jdown, tuple(jout[0].shape))
+    assert not model.state_dict()
+    assert appearance_expected_shapes(tcfg.TrackerConfig(model_type="random")) == {}
     with pytest.raises(NotImplementedError, match="hrnet"):
         zoo.make_encoder("hrnet_w18")
     with pytest.raises(ValueError, match="resnext9000"):

@@ -126,6 +126,32 @@ def test_lapjv_objective_equals_host_hungarian(rng):
             np.testing.assert_allclose(cost(got[p]), cost(ref), rtol=1e-6, atol=1e-5)
 
 
+def test_chip_smoke_lapjv_tie_rule(rng):
+    """chip_smoke.py's rule for LAPJV against the host Hungarian: a problem
+    where the two assignments differ passes only at the host's optimum
+    within LAPJV_TIE_TOL and one-to-one onto the valid targets. LAPJV's own
+    choices pass; a swap of two rows of random costs and a dropped target
+    do not."""
+    import chip_smoke
+    from openpvsg_torch.train.assign import _host_lap, lapjv_assign_from_cost
+
+    for case in ("random", "ties", "padded", "square"):
+        c = _costs(case, rng, P=10)
+        got = _np(lapjv_assign_from_cost(torch.from_numpy(c)))[None]
+        host = np.stack([_host_lap(p) for p in c])[None]
+        assert all(r["ok"] for r in chip_smoke.lapjv_ties(np, c[None], got, host))
+    c = _costs("random", rng, P=1)[None]
+    got = _np(lapjv_assign_from_cost(torch.from_numpy(c[0])))[None]
+    host = _host_lap(c[0, 0])[None, None]
+    swapped, dropped = got.copy(), got.copy()
+    i, j = np.flatnonzero(got[0, 0] >= 0)[:2]
+    swapped[0, 0, [i, j]] = got[0, 0, [j, i]]
+    dropped[0, 0, i] = -1
+    for bad in (swapped, dropped):
+        rows = chip_smoke.lapjv_ties(np, c, bad, host)
+        assert len(rows) == 1 and not rows[0]["ok"], rows
+
+
 def test_lapjv_capacity_raises_as_jax(rng):
     """N > Q raises; with the split, the stuff queries are one problem
     whose Q is checked, so 3 targets over 2 stuff queries raise as JAX's
