@@ -40,6 +40,7 @@ from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.models.resnet import fold_frozen_bn
 from openpvsg_torch.parallel.mesh import replicate, split_blocks
 from openpvsg_torch.parallel.sp import gather, pad_frames_for_mesh
+from openpvsg_torch.utils.profiling import RECORDER, span
 from openpvsg_torch.utils.quantize import dequantize, quantize_state_int8
 
 
@@ -57,6 +58,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     return device
+
+
+def _fetch(t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> np.ndarray:
+    """A blocking copy of ``t`` (cast to ``dtype`` on its device first)
+    to a host array."""
+    with span("segmenter.fetch"):
+        RECORDER.copy(t.device, t.numel() * (dtype or t.dtype).itemsize)
+        return (t if dtype is None else t.to(dtype)).cpu().numpy()
 
 
 def minvis_stitch(embds: np.ndarray,
@@ -176,17 +185,20 @@ class SegmenterInference:
     def _forward(self, i: int, frames: np.ndarray):
         """Replica i's forward of (B, H, W, 3) uint8 frames on its device."""
         mean, std = self._norm[i]
-        x = torch.from_numpy(frames).to(mean.device)
-        x = (x.float() - mean) / std
-        h, w = x.shape[1:3]
-        ph, pw = self._padded_hw(frames)
-        x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
-        if not self._q8[i]:
-            return self.replicas[i](x)
-        # dequantized inside every forward, as JAX does inside its jit: only
-        # the int8 tensors stay resident between calls
-        weights = {k: dequantize(q, s, self.dtype) for k, (q, s) in self._q8[i].items()}
-        return torch.func.functional_call(self.replicas[i], weights, (x,))
+        with span("segmenter.upload"):
+            RECORDER.copy(mean.device, frames.nbytes)
+            x = torch.from_numpy(frames).to(mean.device)
+        with span("segmenter.forward"):
+            x = (x.float() - mean) / std
+            h, w = x.shape[1:3]
+            ph, pw = self._padded_hw(frames)
+            x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
+            if not self._q8[i]:
+                return self.replicas[i](x)
+            # dequantized inside every forward, as JAX does inside its jit:
+            # only the int8 tensors stay resident between calls
+            weights = {k: dequantize(q, s, self.dtype) for k, (q, s) in self._q8[i].items()}
+            return torch.func.functional_call(self.replicas[i], weights, (x,))
 
     def weight_bytes(self) -> int:
         """Bytes of the weights resident on the first device: the model's
@@ -294,23 +306,25 @@ class SegmenterInference:
         """Fetch the query embeddings, run the MinVIS stitch, then
         align + fuse + package."""
         shards, padded_hw, ori_hw = handle
-        embds = np.concatenate([q.float().cpu().numpy() for *_, q in shards])
-        n, Q = embds.shape[:2]
-        perms = np.zeros((n, Q), np.int32)
-        prev = prev_embds if chain_windows else None
-        for lo in range(0, n, window):
-            seg = embds[lo:lo + window]
-            p = minvis_stitch(seg, prev=prev)
-            perms[lo:lo + window] = p
-            if chain_windows:
-                prev = seg[-1][p[-1]]
-        win_id = np.arange(n) // window
-        fused = self._align_fuse_impl(shards, perms, win_id, int(win_id[-1]) + 1,
-                                      padded_hw, ori_hw)
+        embds = np.concatenate([_fetch(q, torch.float32) for *_, q in shards])
+        with span("segmenter.stitch"):
+            n, Q = embds.shape[:2]
+            perms = np.zeros((n, Q), np.int32)
+            prev = prev_embds if chain_windows else None
+            for lo in range(0, n, window):
+                seg = embds[lo:lo + window]
+                p = minvis_stitch(seg, prev=prev)
+                perms[lo:lo + window] = p
+                if chain_windows:
+                    prev = seg[-1][p[-1]]
+        with span("segmenter.align_fuse"):
+            win_id = np.arange(n) // window
+            fused = self._align_fuse_impl(shards, perms, win_id, int(win_id[-1]) + 1,
+                                          padded_hw, ori_hw)
         outputs = [out for fusion, query_a in fused
                    for out in self._package(fusion, query_a)]
         if return_embds:
-            return outputs, fused[-1][1][-1].float().cpu().numpy()
+            return outputs, _fetch(fused[-1][1][-1], torch.float32)
         return outputs
 
     def _align_fuse_impl(self, shards, perms, win_id, n_win, padded_hw, ori_hw):
@@ -347,11 +361,12 @@ class SegmenterInference:
     def _package(self, fusion, query) -> List[Dict]:
         """Device fusion outputs -> host per-frame dicts {'pan_results',
         'query_feats': {segment_id: mean query feature}}."""
-        pan = fusion["pan_seg"].cpu().numpy()
-        keep = fusion["query_keep"].cpu().numpy()
-        seg_ids = fusion["segment_id"].cpu().numpy()
-        q = query.float().cpu().numpy()
-        return [{"pan_results": pan[t],
-                 "query_feats": query_feats_by_segment(
-                     {"query_keep": keep[t], "segment_id": seg_ids[t]}, q[t])}
-                for t in range(pan.shape[0])]
+        pan = _fetch(fusion["pan_seg"])
+        keep = _fetch(fusion["query_keep"])
+        seg_ids = _fetch(fusion["segment_id"])
+        q = _fetch(query, torch.float32)
+        with span("segmenter.feats"):
+            return [{"pan_results": pan[t],
+                     "query_feats": query_feats_by_segment(
+                         {"query_keep": keep[t], "segment_id": seg_ids[t]}, q[t])}
+                    for t in range(pan.shape[0])]

@@ -34,7 +34,7 @@ from openpvsg_torch.eval.relation_matching import (
 from openpvsg_torch.infer.segmenter import SegmenterInference
 from openpvsg_torch.tracker.tracker import MaskAssociationTracker
 from openpvsg_torch.tracker.tubes import SimpleTube
-from openpvsg_torch.utils.profiling import Timer
+from openpvsg_torch.utils.profiling import RECORDER, Timer, count, span
 
 
 def _frame(f: Union[str, np.ndarray]) -> np.ndarray:
@@ -176,7 +176,10 @@ def run_query_tube_vps(
     device before the oldest is fetched and stitched. Each frame's forward
     and fusion are its own and the MinVIS stitch runs per window on the
     host, so results are identical at any batch and depth, chained or not
-    (``openpvsg_tpu/infer/stages.py:171-207``)."""
+    (``openpvsg_tpu/infer/stages.py:171-207``).
+
+    Under ``torch.profiler`` the call records its spans and counters in
+    ``utils/profiling.RECORDER`` as one request, each batch by its index."""
     total_frames = len(frames)
     results = []
     object_list: List[int] = []
@@ -187,10 +190,13 @@ def run_query_tube_vps(
                              if segmenter.mesh is not None else 1)
     per_batch = window * windows_per_batch
 
-    def dispatch(lo: int):
-        raw = np.stack([_frame(f) for f in frames[lo:lo + per_batch]])
-        return raw, segmenter.infer_windows_vps_async(raw)
+    def dispatch(b: int):
+        RECORDER.batch = b
+        with span("stages.stack"):
+            raw = np.stack([_frame(f) for f in frames[offsets[b]:offsets[b] + per_batch]])
+        return b, raw, segmenter.infer_windows_vps_async(raw)
 
+    RECORDER.begin_request()
     offsets = list(range(0, total_frames, per_batch))
     pending: deque = deque()
     next_i = 0
@@ -198,46 +204,54 @@ def run_query_tube_vps(
     prev_embds = None
     while next_i < len(offsets) or pending:
         while next_i < len(offsets) and len(pending) < max(pipeline_depth, 1):
-            pending.append(dispatch(offsets[next_i]))
+            pending.append(dispatch(next_i))
             next_i += 1
-        raw, handle = pending.popleft()
+        RECORDER.batch, raw, handle = pending.popleft()
         outputs, prev_embds = segmenter.finish_windows_vps(
             handle, window, prev_embds=prev_embds,
             chain_windows=chain_windows, return_embds=True)
         if not chain_windows:
             prev_embds = None
-        for img, out in zip(raw, outputs):
-            rles, tids, vis_masks = [], [], []
-            for seg_id, feat in out["query_feats"].items():
-                if seg_id not in object_list:
-                    object_list.append(seg_id)
-                    feat_tubes[object_list.index(seg_id) + 1] = {}
-                tid = object_list.index(seg_id) + 1
-                feat_tubes[tid][frame_id] = {
-                    "query_feat": np.asarray(feat, np.float32),
-                    "cls_id": int(seg_id % INSTANCE_OFFSET),
-                }
-                mask = (out["pan_results"] == seg_id).astype(np.uint8)
-                rle = rle_codec.encode(mask)
-                rle["class_id"] = seg_id % INSTANCE_OFFSET
-                rles.append(rle)
-                tids.append(tid)
-                vis_masks.append(mask)
-            results.append((frame_id + 1, rles, tids))
-            if save_images:
-                save_tracking_overlay(save_root, frame_id + 1, img, vis_masks,
-                                      tids)
-            frame_id += 1
+        with span("stages.tubes"):
+            count("batches")
+            count("frames", len(raw))
+            for img, out in zip(raw, outputs):
+                rles, tids, vis_masks = [], [], []
+                for seg_id, feat in out["query_feats"].items():
+                    if seg_id not in object_list:
+                        object_list.append(seg_id)
+                        feat_tubes[object_list.index(seg_id) + 1] = {}
+                    tid = object_list.index(seg_id) + 1
+                    feat_tubes[tid][frame_id] = {
+                        "query_feat": np.asarray(feat, np.float32),
+                        "cls_id": int(seg_id % INSTANCE_OFFSET),
+                    }
+                    mask = (out["pan_results"] == seg_id).astype(np.uint8)
+                    rle = rle_codec.encode(mask)
+                    rle["class_id"] = seg_id % INSTANCE_OFFSET
+                    rles.append(rle)
+                    tids.append(tid)
+                    vis_masks.append(mask)
+                results.append((frame_id + 1, rles, tids))
+                count("segments", len(rles))
+                if save_images:
+                    save_tracking_overlay(save_root, frame_id + 1, img, vis_masks,
+                                          tids)
+                frame_id += 1
 
-    data_io.write_masks_txt(
-        os.path.join(save_root, "quantitive", "masks.txt"), results)
-    tubes = []
-    for tid, per_frame in feat_tubes.items():
-        tube = SimpleTube(tid)
-        for i in range(total_frames):
-            tube.append(per_frame.get(i))
-        tubes.append(tube)
-    data_io.save_pickle(os.path.join(save_root, "query_feats.pickle"), tubes)
+    RECORDER.batch = -1
+    with span("stages.write_masks"):
+        data_io.write_masks_txt(
+            os.path.join(save_root, "quantitive", "masks.txt"), results)
+    with span("stages.write_tubes"):
+        tubes = []
+        for tid, per_frame in feat_tubes.items():
+            tube = SimpleTube(tid)
+            for i in range(total_frames):
+                tube.append(per_frame.get(i))
+            tubes.append(tube)
+        data_io.save_pickle(os.path.join(save_root, "query_feats.pickle"), tubes)
+    RECORDER.end_request()
     return len(tubes)
 
 

@@ -13,6 +13,12 @@ of the JAX package's checkpoint (``export_jax_checkpoint.py``); without one
 the weights are random (with a warning). The forward runs in bfloat16 on
 the GPU and in float32 on the CPU. The run ends with a ``summary:`` log line
 as the IPS CLI's.
+
+``--trace-dir DIR`` traces the first video under ``torch.profiler``
+(``utils/profiling.trace``): ``DIR/trace.json`` (Chrome trace) and
+``DIR/spans.json`` (the program's spans and counters; in a multi-process
+run each process writes ``DIR/rank{i}/``). The summary line then gains
+``spans`` ({name: {total_s, calls}}) and ``counters`` of that video.
 """
 from __future__ import annotations
 
@@ -41,6 +47,9 @@ def main(argv=None):
                              "upload and forward overlap window N's fetch and "
                              "MinVIS stitch (1 = serial; the same results at "
                              "any depth)")
+    parser.add_argument("--trace-dir", default=None,
+                        help="trace the first video into DIR/trace.json and "
+                             "DIR/spans.json")
     args = parser.parse_args(argv)
     reject_unused_n_time(args)
     cfg = load_config(args)
@@ -50,7 +59,9 @@ def main(argv=None):
     from openpvsg_torch.data.pvsg import PVSGAnnotation, frame_paths
     from openpvsg_torch.infer.segmenter import SegmenterInference, resolve_device
     from openpvsg_torch.infer.stages import run_query_tube_vps
+    from openpvsg_torch.parallel.mesh import rank, world
     from openpvsg_torch.train.checkpoint import load_model_state
+    from openpvsg_torch.utils.profiling import RECORDER, trace
     from openpvsg_torch.weights import random_state_dict
 
     save_dir = os.path.join(cfg.data.work_dir, f"{args.split}_save_qf")
@@ -77,16 +88,20 @@ def main(argv=None):
 
     summary = {"device": str(device), "dtype": str(dtype).split(".")[-1],
                "videos": 0, "frames": 0, "tubes": 0}
+    trace_dir = args.trace_dir
+    if trace_dir is not None and world() > 1:
+        trace_dir = os.path.join(trace_dir, f"rank{rank()}")
     t0 = time.perf_counter()
     for vid in videos:
         frames = frame_paths(cfg.data.data_dir, vid, "frames")
         if not frames:
             logger.warning(f"{vid}: no frames, skipping")
             continue
-        n = run_query_tube_vps(seg, frames, os.path.join(save_dir, vid),
-                               window=window, chain_windows=args.chain_windows,
-                               pipeline_depth=args.pipeline_depth,
-                               save_images=args.save_images)
+        with trace(trace_dir if summary["videos"] == 0 else None):
+            n = run_query_tube_vps(seg, frames, os.path.join(save_dir, vid),
+                                   window=window, chain_windows=args.chain_windows,
+                                   pipeline_depth=args.pipeline_depth,
+                                   save_images=args.save_images)
         logger.info(f"{vid}: {len(frames)} frames -> {n} tubes")
         summary["videos"] += 1
         summary["frames"] += len(frames)
@@ -95,6 +110,8 @@ def main(argv=None):
                    peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
                              if device.type == "cuda" else None),
                    launches=kernel_launches(since=launches_before))
+    if trace_dir is not None:
+        summary.update(spans=RECORDER.totals(), counters=dict(RECORDER.counters))
     log_summary(logger, summary)
     return summary
 

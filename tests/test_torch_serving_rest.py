@@ -12,6 +12,7 @@ byte-identical and ``query_feats.pickle`` equal in content (features
 1e-4, tests/test_torch_stage2.py's bound); the harness's mAP and recalls
 1e-12.
 """
+import json
 import os
 import pickle
 
@@ -346,7 +347,7 @@ def test_metric_harness_cases():
 # ---------------------------------------------------------------------------
 
 def test_profiling_surfaces(tmp_path):
-    from openpvsg_torch.utils.profiling import StageTimer, Timer, trace
+    from openpvsg_torch.utils.profiling import RECORDER, Recorder, Timer, trace
 
     t = Timer()
     for _ in range(3):
@@ -357,20 +358,78 @@ def test_profiling_surfaces(tmp_path):
     assert t.toc(average=False) == t.diff
     t.clear()
     assert t.calls == 0 and t.total_time == 0.0
-    st = StageTimer()
-    for name in ("a", "b", "a"):
-        with st.stage(name):
-            pass
-    summary = st.summary()
-    assert summary["a"]["calls"] == 2 and summary["b"]["calls"] == 1
-    assert summary["a"]["mean_s"] == pytest.approx(summary["a"]["total_s"] / 2)
-    assert st.report().startswith("a: ") and "(2x)" in st.report()
+    rec = Recorder()
+    with rec.span("a"):
+        rec.count("n")
+        rec.copy(torch.device("cpu"), 8)
+    assert rec.snapshot() == {"spans": [], "counters": {}}    # no profiler running
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for name in ("a", "b", "a"):
+            with rec.span(name):
+                pass
+        request = rec.begin_request()
+        rec.batch = 2
+        with rec.span("b"):
+            rec.count("n")
+            rec.count("n", 4)
+            rec.copy(torch.device("cpu"), 12)
+        rec.end_request()
+    snap = rec.snapshot()
+    assert [s[0] for s in snap["spans"]] == ["a", "b", "a", "b"]
+    assert [s[3:] for s in snap["spans"]] == [(-1, -1)] * 3 + [(request, 2)]
+    assert all(s[1] <= s[2] for s in snap["spans"])
+    assert snap["counters"] == {"n": 5, "copies": 1, "copy_bytes": 12, "copies_drained": 1}
+    totals = rec.totals()
+    assert totals["a"]["calls"] == 2 and totals["b"]["calls"] == 2
+    assert totals["a"]["total_s"] == pytest.approx(
+        sum(s[2] - s[1] for s in snap["spans"] if s[0] == "a") * 1e-9)
+    assert rec.begin_request() == request + 1
+    rec.reset()
+    assert rec.snapshot() == {"spans": [], "counters": {}}
     with trace(None):
         pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        RECORDER.count("before")                  # trace() starts from nothing
     log_dir = str(tmp_path / "trace")
     with trace(log_dir):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with RECORDER.span("mm"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+        RECORDER.count("n")
     path = os.path.join(log_dir, "trace.json")
     with open(path) as f:
         text = f.read()
-    assert '"traceEvents"' in text and "aten::mm" in text
+    assert '"traceEvents"' in text and "aten::mm" in text and "openpvsg.mm" in text
+    with open(os.path.join(log_dir, "spans.json")) as f:
+        spans = json.load(f)
+    assert [s[0] for s in spans["spans"]] == ["mm"] and spans["counters"] == {"n": 1}
+    RECORDER.reset()
+
+
+def test_vps_cli_traces_the_first_video(tmp_path):
+    """``prepare_query_tube_vps --trace-dir`` traces the first video alone:
+    its trace and spans files, and the summary's spans and counters, with
+    the second video's outputs written untraced."""
+    from openpvsg_torch.tools import make_synthetic_data, prepare_query_tube_vps
+
+    data, work, traced = (str(tmp_path / d) for d in ("data", "work", "traced"))
+    anno = make_synthetic_data.main(["--out", data, "--train-videos", "0",
+                                     "--val-videos", "2", "--frames", "4",
+                                     "--size", "32", "32"])
+    summary = prepare_query_tube_vps.main([
+        "--config", "mask2former_vps", "--data-dir", data, "--anno-file", anno,
+        "--work-dir", work, "--split", "val", "--device", "cpu", "--trace-dir", traced,
+        "--set", "model.backbone.depth=26", "model.num_queries=8",
+        "model.num_things_classes=5", "model.num_stuff_classes=3",
+        "model.decoder.num_layers=1", "model.decoder.ffn_channels=32",
+        "model.pixel_decoder.encoder_layers=1", "model.pixel_decoder.ffn_channels=32",
+        "model.object_mask_thr=0.0"])
+    assert summary["videos"] == 2 and summary["frames"] == 8
+    with open(os.path.join(traced, "spans.json")) as f:
+        spans = json.load(f)
+    assert {s[3] for s in spans["spans"]} == {spans["spans"][0][3]}    # one video
+    assert spans["counters"] == summary["counters"]
+    assert summary["counters"]["frames"] == 4 and summary["counters"]["batches"] == 2
+    assert summary["spans"]["segmenter.fetch"]["calls"] == 12
+    assert summary["spans"]["stages.write_tubes"]["calls"] == 1
+    assert os.path.exists(os.path.join(traced, "trace.json"))
+    assert len(os.listdir(os.path.join(work, "val_save_qf"))) >= 2

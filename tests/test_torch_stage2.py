@@ -142,3 +142,131 @@ def test_stage2_takes_decoded_frames(segmenters, frame_files, tmp_path):
     with open(tmp_path / "paths" / "quantitive" / "masks.txt", "rb") as a, \
             open(tmp_path / "arrays" / "quantitive" / "masks.txt", "rb") as b:
         assert a.read() == b.read()
+
+
+# ---------------------------------------------------------------------------
+# spans and counters of run_query_tube_vps (utils/profiling.RECORDER)
+# ---------------------------------------------------------------------------
+
+SPANS = {"stages.stack", "segmenter.upload", "segmenter.forward", "segmenter.fetch",
+         "segmenter.stitch", "segmenter.align_fuse", "segmenter.feats", "stages.tubes",
+         "stages.write_masks", "stages.write_tubes"}
+VIDEOS, PER_BATCH = 2, 2             # two videos of T_FRAMES, one window of 2 per batch
+
+
+def _stage2_files(root):
+    with open(root / "quantitive" / "masks.txt", "rb") as a, \
+            open(root / "query_feats.pickle", "rb") as b:
+        return a.read(), b.read()
+
+
+@pytest.fixture(scope="module")
+def traced_stage2(segmenters, frame_files, tmp_path_factory):
+    """Two videos run under ``torch.profiler`` and one without it: the
+    recorder's snapshot, the profiler's events and the output roots."""
+    import torch
+
+    from openpvsg_torch.infer import stages
+    from openpvsg_torch.utils.profiling import RECORDER
+
+    _, seg = segmenters
+    root = tmp_path_factory.mktemp("traced_stage2")
+    stages.run_query_tube_vps(seg, frame_files, str(root / "off"), window=PER_BATCH)
+    RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for v in range(VIDEOS):
+            stages.run_query_tube_vps(seg, frame_files, str(root / f"on{v}"),
+                                      window=PER_BATCH)
+    snap = RECORDER.snapshot()
+    RECORDER.reset()
+    events = [(e.name()[len("openpvsg."):], e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("openpvsg.")]
+    return snap, events, root
+
+
+def test_stage2_records_nothing_without_a_profiler(segmenters, frame_files, tmp_path,
+                                                   monkeypatch):
+    """With no profiler running, no span or counter records, opens a
+    profiler range or asks a CUDA stream anything."""
+    import torch
+
+    from openpvsg_torch.infer import stages
+    from openpvsg_torch.utils import profiling
+
+    def forbidden(*a, **k):
+        raise AssertionError("called with tracing off")
+
+    for owner, name in ((profiling, "_HostRange"), (torch.profiler, "record_function"),
+                        (torch.autograd.profiler, "record_function"),
+                        (torch.cuda, "current_stream")):
+        monkeypatch.setattr(owner, name, forbidden)
+    profiling.RECORDER.reset()
+    _, seg = segmenters
+    stages.run_query_tube_vps(seg, frame_files, str(tmp_path / "out"), window=PER_BATCH)
+    assert profiling.RECORDER.snapshot() == {"spans": [], "counters": {}}
+    assert profiling.RECORDER.request == profiling.RECORDER.batch == -1
+
+
+def test_stage2_spans_are_flat_and_cover_the_table(traced_stage2):
+    """Every span of the table appears; none overlaps another on the thread;
+    the spans of one call share one request, those of a batch its index,
+    and the files' spans come once per call outside every batch."""
+    snap, _, _ = traced_stage2
+    spans = sorted(snap["spans"], key=lambda s: s[1])
+    assert {s[0] for s in spans} == SPANS
+    for a, b in zip(spans, spans[1:]):
+        assert a[1] <= a[2] <= b[1], (a, b)
+    requests = sorted({s[3] for s in spans})
+    assert len(requests) == VIDEOS and requests[0] >= 1
+    batches = -(-T_FRAMES // PER_BATCH)
+    for r in requests:
+        mine = [s for s in spans if s[3] == r]
+        assert {s[4] for s in mine} == {-1, *range(batches)}
+        assert [s[0] for s in mine if s[4] == -1] == ["stages.write_masks",
+                                                      "stages.write_tubes"]
+        for b in range(batches):
+            names = [s[0] for s in mine if s[4] == b]
+            assert names[:3] == ["stages.stack", "segmenter.upload", "segmenter.forward"]
+            assert names.count("segmenter.fetch") == 6 and names[-1] == "stages.tubes"
+    # the calls follow one another: one request's spans all end before the next's
+    assert max(s[2] for s in spans if s[3] == requests[0]) \
+        <= min(s[1] for s in spans if s[3] == requests[1])
+
+
+def test_stage2_counters(segmenters, traced_stage2):
+    """One upload and six fetches per batch at one replica, their bytes,
+    and frames, batches and segments as the outputs count them (a CPU
+    device has no stream, so each of its copies counts as drained)."""
+    _, seg = segmenters
+    snap, _, root = traced_stage2
+    c = snap["counters"]
+    batches = VIDEOS * -(-T_FRAMES // PER_BATCH)
+    assert c["batches"] == batches and c["frames"] == VIDEOS * T_FRAMES
+    assert c["copies"] == c["copies_drained"] == 7 * batches
+    lines = sum(len(_stage2_files(root / f"on{v}")[0].splitlines()) for v in range(VIDEOS))
+    assert c["segments"] == lines > 0
+    Q, C = seg.cfg.num_queries, seg.cfg.decoder.feat_channels
+    per_frame = (H * W * 3                 # the uint8 upload
+                 + 2 * Q * C * 4           # the embeddings for the stitch, the aligned query
+                 + H * W * 4 + Q + Q * 4)  # pan_seg, query_keep, segment_id
+    assert c["copy_bytes"] == VIDEOS * T_FRAMES * per_frame + batches * Q * C * 4
+
+
+def test_stage2_spans_share_the_profilers_clock(traced_stage2):
+    """Each recorded span lies within 1 ms of its ``openpvsg.<name>``
+    profiler event, at both ends: one clock for both."""
+    snap, events, _ = traced_stage2
+    assert len(events) == len(snap["spans"])
+    for name in SPANS:
+        got = sorted(s[1:3] for s in snap["spans"] if s[0] == name)
+        want = sorted(e[1:] for e in events if e[0] == name)
+        assert len(got) == len(want) > 0
+        for (s0, s1), (e0, e1) in zip(got, want):
+            assert abs(s0 - e0) < 1e6 and abs(s1 - e1) < 1e6, name
+
+
+def test_stage2_outputs_do_not_change_under_tracing(traced_stage2):
+    _, _, root = traced_stage2
+    off = _stage2_files(root / "off")
+    assert all(_stage2_files(root / f"on{v}") == off for v in range(VIDEOS))
