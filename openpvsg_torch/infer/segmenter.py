@@ -22,6 +22,21 @@ and the fusion of its block on its own device (kernels B1 and B2 launch
 there), and only the MinVIS stitch and the window means of the class logits
 meet on the host and the first device. The one-device path is the mesh of
 one replica.
+
+On the card each replica replays its forward (the normalization and zero
+pad, then ``Mask2Former.forward``, kernel B1 included) as one CUDA graph
+per batch shape: the first call with a shape runs eagerly (which also
+warms cuBLAS, cuDNN and B1's one-time setup), the second captures the
+forward and replays it, later calls replay. Only a shape that repeats is
+captured. Each graph reads a static uint8 input that the upload copies the
+frames into, and its outputs are copied out after each replay, since
+batches stay in flight while the next replay overwrites them. A replica's
+graphs share one memory pool: all replay on one stream, and each one's
+outputs are copied out before the next. CPU tensors, and a replica with
+int8 weights (whose point is that only the int8 tensors stay resident
+between calls, where a graph's pool would keep the dequantized ones),
+always run eagerly. The graphs hold the model as it was when each was
+captured: the model is not changed after the first forward.
 """
 from __future__ import annotations
 
@@ -35,12 +50,13 @@ import torch
 from openpvsg_torch import native
 from openpvsg_torch.config import Mask2FormerConfig
 from openpvsg_torch.data.pipeline import pad_to_divisor
+from openpvsg_torch.kernels import fpn
 from openpvsg_torch.models.fusion import panoptic_fusion, query_feats_by_segment
 from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.models.resnet import fold_frozen_bn
 from openpvsg_torch.parallel.mesh import replicate, split_blocks
 from openpvsg_torch.parallel.sp import gather, pad_frames_for_mesh
-from openpvsg_torch.utils.profiling import RECORDER, span
+from openpvsg_torch.utils.profiling import RECORDER, count, span
 from openpvsg_torch.utils.quantize import dequantize, quantize_state_int8
 
 
@@ -92,6 +108,16 @@ def minvis_stitch(embds: np.ndarray,
         perms[t] = ci
         prev = cur[ci]
     return perms
+
+
+@dataclasses.dataclass(frozen=True)
+class _Graph:
+    """One captured forward: its static input, the graph, its static
+    outputs, and the launches of each of B1's wrappers inside it."""
+    x: torch.Tensor
+    graph: "torch.cuda.CUDAGraph"
+    out: Tuple[torch.Tensor, ...]
+    launches: Tuple[int, ...]
 
 
 class SegmenterInference:
@@ -157,6 +183,11 @@ class SegmenterInference:
         # the int8 weights and their scales, one copy on each replica's device
         self._q8 = [{k: (q.to(dev), s.to(dev)) for k, (q, s) in quantized.items()}
                     for dev in devices]
+        # the captured forwards by (replica, batch shape), the shapes seen
+        # once, and each replica's graph memory pool and capture stream
+        self._graphs: Dict[Tuple[int, tuple], _Graph] = {}
+        self._seen: set = set()
+        self._capture_ctx: Dict[int, tuple] = {}
         if quantized:
             n_elems = sum(q.numel() for q, _ in quantized.values())
             logging.getLogger(__name__).info(
@@ -183,22 +214,71 @@ class SegmenterInference:
 
     @torch.no_grad()
     def _forward(self, i: int, frames: np.ndarray):
-        """Replica i's forward of (B, H, W, 3) uint8 frames on its device."""
+        """Replica i's forward of (B, H, W, 3) uint8 frames on its device:
+        eager, or on the card from the second call with a shape on, a
+        replay of the shape's graph (captured first if there is none) whose
+        outputs are returned as copies. A replay advances B1's launch
+        counters by the launches its capture recorded."""
+        dev = self._norm[i][0].device
+        key = (i, frames.shape)
+        graphed = dev.type == "cuda" and not self._q8[i]
+        if not graphed or key not in self._seen:
+            self._seen.add(key)
+            count("segmenter.eager_forwards")
+            with span("segmenter.upload"):
+                RECORDER.copy(dev, frames.nbytes)
+                x = torch.from_numpy(frames).to(dev)
+            with span("segmenter.forward"):
+                return self._model_forward(i, x)
+        with torch.cuda.device(dev):
+            g = self._graphs.get(key)
+            with span("segmenter.upload"):
+                RECORDER.copy(dev, frames.nbytes)
+                x = torch.empty(frames.shape, dtype=torch.uint8, device=dev) if g is None else g.x
+                x.copy_(torch.from_numpy(frames))
+            with span("segmenter.forward"):
+                if g is None:
+                    g = self._graphs[key] = self._capture(i, x)
+                g.graph.replay()
+                for fn, n in zip(fpn.KERNEL_WRAPPERS, g.launches):
+                    fn.launches += n
+                count("segmenter.graph_replays")
+                return tuple(t.clone() for t in g.out)
+
+    def _model_forward(self, i: int, x: torch.Tensor):
+        """Replica i's normalization, zero pad and model on the uint8
+        (B, H, W, 3) frames ``x`` on its device."""
         mean, std = self._norm[i]
-        with span("segmenter.upload"):
-            RECORDER.copy(mean.device, frames.nbytes)
-            x = torch.from_numpy(frames).to(mean.device)
-        with span("segmenter.forward"):
-            x = (x.float() - mean) / std
-            h, w = x.shape[1:3]
-            ph, pw = self._padded_hw(frames)
-            x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
-            if not self._q8[i]:
-                return self.replicas[i](x)
-            # dequantized inside every forward, as JAX does inside its jit:
-            # only the int8 tensors stay resident between calls
-            weights = {k: dequantize(q, s, self.dtype) for k, (q, s) in self._q8[i].items()}
-            return torch.func.functional_call(self.replicas[i], weights, (x,))
+        x = (x.float() - mean) / std
+        h, w = x.shape[1:3]
+        ph, pw = self._padded_hw(x)
+        x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
+        if not self._q8[i]:
+            return self.replicas[i](x)
+        # dequantized inside every forward, as JAX does inside its jit:
+        # only the int8 tensors stay resident between calls
+        weights = {k: dequantize(q, s, self.dtype) for k, (q, s) in self._q8[i].items()}
+        return torch.func.functional_call(self.replicas[i], weights, (x,))
+
+    def _capture(self, i: int, x: torch.Tensor) -> "_Graph":
+        """Captures replica i's forward of the static input ``x`` into a
+        graph in the replica's pool, on its capture stream. The wrappers'
+        launch counters are left as they were: the capture launched
+        nothing."""
+        if i not in self._capture_ctx:
+            self._capture_ctx[i] = (torch.cuda.graph_pool_handle(),
+                                   torch.cuda.Stream(x.device))
+        pool, stream = self._capture_ctx[i]
+        before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = self._model_forward(i, x)
+        launches = []
+        for fn, n in zip(fpn.KERNEL_WRAPPERS, before):
+            launches.append(fn.launches - n)
+            fn.launches = n
+        count("segmenter.graph_captures")
+        return _Graph(x, graph, out, tuple(launches))
 
     def weight_bytes(self) -> int:
         """Bytes of the weights resident on the first device: the model's

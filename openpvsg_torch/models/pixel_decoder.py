@@ -26,7 +26,7 @@ config files of either value, so they load.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,17 @@ class MSDeformAttention(nn.Module):
         self.sampling_offsets = Dense(embed_dim, num_heads * num_levels * num_points * 2)
         self.attention_weights = Dense(embed_dim, num_heads * num_levels * num_points)
         self.output_proj = Dense(embed_dim, embed_dim)
+        # (w_l, h_l) of each level by (spatial shapes, device), built once:
+        # a host-to-device copy per forward would also break graph capture
+        self._normalizers: Dict[tuple, torch.Tensor] = {}
+
+    def _normalizer(self, spatial_shapes: Sequence[Tuple[int, int]],
+                    device: torch.device) -> torch.Tensor:
+        key = (tuple(map(tuple, spatial_shapes)), device)
+        if key not in self._normalizers:
+            self._normalizers[key] = torch.tensor(
+                [[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=device)
+        return self._normalizers[key]
 
     def forward(self, query: torch.Tensor, value: torch.Tensor,
                 reference_points: torch.Tensor,
@@ -88,8 +99,7 @@ class MSDeformAttention(nn.Module):
         attn = self.attention_weights(query).reshape(B, S, H, L * P).float()
         attn = torch.softmax(attn, dim=-1).reshape(B, S, H, L, P)
         # offsets are in pixels of each level: normalize by (w_l, h_l)
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=torch.float32, device=query.device)
+        normalizer = self._normalizer(spatial_shapes, query.device)
         locs = (reference_points[:, :, None, None, None, :]
                 + offsets / normalizer[None, None, None, :, None, :])
         out = ms_deform_attn(v, spatial_shapes, locs, attn)

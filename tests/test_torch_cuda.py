@@ -679,3 +679,143 @@ def test_int8_quantization_on_the_card_equals_the_cpu(dev):
         assert torch.equal(qd.cpu(), q) and torch.equal(sd.cpu(), s)
         for dt in (torch.float32, torch.bfloat16):
             assert torch.equal(dequantize(qd, sd, dt).cpu(), dequantize(q, s, dt))
+
+
+# ---------------------------------------------------------------------------
+# the segmenter's forward as one CUDA graph per batch shape
+# ---------------------------------------------------------------------------
+
+def _full_segmenter(dev, encoder, dtype, seed=0, **kw):
+    """The stage-2 R-50 (``mask2former_vps``) with ``encoder`` on the card,
+    from seeded random weights."""
+    import dataclasses
+
+    from openpvsg_torch.config import mask2former_vps
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = mask2former_vps().model
+    cfg = dataclasses.replace(
+        cfg, object_mask_thr=0.0, iou_thr=0.1,
+        pixel_decoder=dataclasses.replace(cfg.pixel_decoder, encoder=encoder))
+    return SegmenterInference(cfg, random_state_dict(cfg, seed), dtype=dtype,
+                              device=dev, **kw)
+
+
+def _tiny_segmenter(dev, seed=0, **kw):
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = _tiny_train_cfg()
+    return SegmenterInference(cfg, random_state_dict(cfg, seed), device=dev, **kw)
+
+
+def _eager(seg, frames, i=0):
+    """Replica i's forward of ``frames`` run eagerly."""
+    with torch.no_grad():
+        return seg._model_forward(i, torch.from_numpy(frames).to(seg._norm[i][0].device))
+
+
+def _frames(n, h, w, seed):
+    return np.random.default_rng(seed).integers(0, 255, (n, h, w, 3), dtype=np.uint8)
+
+
+# (encoder, dtype, frames, frame size): the offline cell's 2-frame window,
+# the batched cell's 8-frame batch and its ragged 6, and float32
+GRAPH_CASES = [("axial", torch.bfloat16, 2, (360, 480)), ("msda", torch.bfloat16, 8, (360, 640)),
+               ("msda", torch.bfloat16, 6, (360, 640)), ("axial", torch.float32, 2, (360, 480))]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_graphed_forward_equals_the_eager_forward(dev, case):
+    """The first call of a shape runs eagerly, the second captures and
+    replays, the third replays: each call's cls, masks and query equal the
+    eager forward of its frames bit for bit (the same kernels replayed),
+    and the one graph reads each call's own frames."""
+    encoder, dtype, n, (h, w) = case
+    seg = _full_segmenter(dev, encoder, dtype)
+    for k in range(3):
+        frames = _frames(n, h, w, k)
+        got = seg.forward_frames(frames)
+        want = _eager(seg, frames)
+        for name, a, b in zip(("cls", "masks", "query"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, name)
+        assert len(seg._graphs) == (k > 0)
+
+
+def test_two_batches_in_flight_keep_their_outputs(dev):
+    """Two window batches enqueued before the first is finished: each
+    batch's outputs are its own (the second replay does not overwrite the
+    first's), and finishing them gives the serial results."""
+    seg = _full_segmenter(dev, "axial", torch.bfloat16)
+    a, b = _frames(2, 360, 480, 1), _frames(2, 360, 480, 2)
+    for _ in range(2):  # eager, then capture
+        seg.forward_frames(a)
+    want = [_eager(seg, f) for f in (a, b)]
+    handles = [seg.infer_windows_vps_async(f) for f in (a, b)]
+    for handle, ref in zip(handles, want):
+        (_, *got), = handle[0]
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    outs = [seg.finish_windows_vps(h, 2) for h in handles]
+    for f, out in zip((a, b), outs):
+        serial = seg.infer_windows_vps(f, 2)
+        for x, y in zip(out, serial):
+            assert np.array_equal(x["pan_results"], y["pan_results"])
+            assert x["query_feats"].keys() == y["query_feats"].keys()
+    assert len(seg._graphs) == 1
+
+
+def test_int8_segmenter_never_captures(dev):
+    from openpvsg_torch.utils.profiling import RECORDER
+
+    seg = _tiny_segmenter(dev, int8_weights=True)
+    frames = _frames(2, 64, 64, 0)
+    RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = [seg.forward_frames(frames) for _ in range(3)]
+    counters = RECORDER.snapshot()["counters"]
+    RECORDER.reset()
+    assert seg._graphs == {} and counters["segmenter.eager_forwards"] == 3
+    assert "segmenter.graph_captures" not in counters
+    assert all(torch.equal(x, y) for out in outs[1:] for x, y in zip(out, outs[0]))
+
+
+def test_each_replay_advances_b1s_launch_counters_by_one(dev):
+    seg = _tiny_segmenter(dev)
+    frames = _frames(2, 64, 64, 0)
+    for _ in range(4):  # eager, capture + replay, replay, replay
+        before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
+        seg.forward_frames(frames)
+        assert [fn.launches - b for fn, b in zip(fpn.KERNEL_WRAPPERS, before)] == [1, 1, 1]
+
+
+def test_graph_counters_under_a_profiler(dev):
+    """One shape called three times under a profiler: one eager forward,
+    one capture, two replays; a second shape starts eager again."""
+    from openpvsg_torch.utils.profiling import RECORDER
+
+    seg = _tiny_segmenter(dev)
+    RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            seg.forward_frames(_frames(2, 64, 64, 0))
+        seg.forward_frames(_frames(1, 64, 64, 0))
+    counters = RECORDER.snapshot()["counters"]
+    RECORDER.reset()
+    assert {k: v for k, v in counters.items() if k.startswith("segmenter.")} == {
+        "segmenter.eager_forwards": 2, "segmenter.graph_captures": 1,
+        "segmenter.graph_replays": 2}
+
+
+def test_mesh_replicas_each_replay_their_own_graph(dev):
+    """A (data=2) mesh of two replicas on one card: each replica captures
+    its own graph, and the mesh's replays equal its eager first call."""
+    from openpvsg_torch.parallel.mesh import make_mesh
+
+    seg = _tiny_segmenter(dev, mesh=make_mesh(n_data=2, devices=[dev, dev]))
+    frames = _frames(4, 64, 64, 3)
+    first = seg.forward_frames(frames)
+    for _ in range(2):
+        got = seg.forward_frames(frames)
+        assert all(torch.equal(x, y) for x, y in zip(got, first))
+    assert sorted(i for i, _ in seg._graphs) == [0, 1]

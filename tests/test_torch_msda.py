@@ -152,6 +152,24 @@ def test_msda_attention_layer_matches_flax(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("shapes", [[(6, 8), (3, 4), (2, 2)],
+                                    [(12, 15), (24, 30), (48, 60)]])
+def test_msda_level_normalizer_is_built_once_per_shapes(shapes):
+    """The layer's (w_l, h_l) normalizer, kept per spatial shapes, holds
+    the same float32 values as the tensor built afresh on every forward
+    before, and a second forward of those shapes reuses it."""
+    from openpvsg_torch.models.pixel_decoder import MSDeformAttention
+
+    mod = MSDeformAttention(32, 4, 3, 2)
+    got = mod._normalizer(shapes, torch.device("cpu"))
+    want = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert mod._normalizer(list(shapes), torch.device("cpu")) is got
+    other = [(h + 1, w) for h, w in shapes]
+    assert torch.equal(mod._normalizer(other, torch.device("cpu")),
+                       torch.tensor([[w, h] for h, w in other], dtype=torch.float32))
+
+
 @pytest.mark.parametrize("train", [False, True])
 def test_msda_pixel_decoder_matches_flax(train, rng):
     """mask_feature and the three encoder levels; ``train=True`` runs the

@@ -253,6 +253,18 @@ def test_stage2_counters(segmenters, traced_stage2):
     assert c["copy_bytes"] == VIDEOS * T_FRAMES * per_frame + batches * Q * C * 4
 
 
+def test_stage2_cpu_forwards_run_eagerly(segmenters, traced_stage2):
+    """On the CPU every forward runs eagerly: no graph is kept, and of the
+    forward's three counters only ``segmenter.eager_forwards`` counts, once
+    per batch."""
+    _, seg = segmenters
+    snap, _, _ = traced_stage2
+    c = snap["counters"]
+    assert c["segmenter.eager_forwards"] == c["batches"] == VIDEOS * -(-T_FRAMES // PER_BATCH)
+    assert "segmenter.graph_replays" not in c and "segmenter.graph_captures" not in c
+    assert seg._graphs == {}
+
+
 def test_stage2_spans_share_the_profilers_clock(traced_stage2):
     """Each recorded span lies within 1 ms of its ``openpvsg.<name>``
     profiler event, at both ends: one clock for both."""
