@@ -26,7 +26,7 @@ from openpvsg_torch import NUM_RELATIONS, NUM_STUFF_CLASSES, NUM_THING_CLASSES
 class BackboneConfig:
     kind: str = "resnet"  # 'resnet' | 'swin'
     depth: int = 50
-    swin_variant: str = "tiny"  # tiny | small | base
+    swin_variant: str = "tiny"  # tiny | small | base | large
     # 'frozen_bn' / 'sync_bn' run BatchNorm with running statistics at
     # inference; 'gn' a 32-group GroupNorm; 'folded' means the BN affine is
     # folded into the convs.
@@ -301,11 +301,26 @@ def mask2former_swin(video: bool = True) -> PVSGConfig:
             pixel_decoder=PixelDecoderConfig(in_channels=(96, 192, 384, 768))))
 
 
+def mask2former_swinl_vps() -> PVSGConfig:
+    """Mask2Former's flagship, Swin-L (window 12) with the MSDA pixel
+    decoder and 200 queries, as the VPS segmenter (2-frame clips):
+    Mask2Former's configs/coco/panoptic-segmentation/swin/
+    maskformer2_swin_large_IN21k_384_bs16_100ep.yaml on PVSG's classes."""
+    return PVSGConfig(
+        name="mask2former_swinl_vps",
+        model=Mask2FormerConfig(
+            video=True, num_frames=2, num_queries=200,
+            backbone=BackboneConfig(kind="swin", swin_variant="large"),
+            pixel_decoder=PixelDecoderConfig(in_channels=(192, 384, 768, 1536),
+                                             encoder="msda")))
+
+
 PRESETS = {
     "mask2former_ips": mask2former_ips,
     "mask2former_vps": mask2former_vps,
     "mask2former_swin_ips": lambda: mask2former_swin(False),
     "mask2former_swin_vps": lambda: mask2former_swin(True),
+    "mask2former_swinl_vps": mask2former_swinl_vps,
     "relation_vanilla": lambda: relation_head("vanilla"),
     "relation_filter": lambda: relation_head("filter"),
     "relation_conv": lambda: relation_head("conv"),

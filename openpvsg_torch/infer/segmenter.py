@@ -37,9 +37,22 @@ int8 weights (whose point is that only the int8 tensors stay resident
 between calls, where a graph's pool would keep the dequantized ones),
 always run eagerly. The graphs hold the model as it was when each was
 captured: the model is not changed after the first forward.
+
+While a profiler runs, the recorder's counters ``segmenter.backbone_device_us``
+and ``segmenter.backbone_frames`` add up the backbone's device time (the
+frames' normalization and zero pad, then the backbone) and the frames it
+ran, from a CUDA event pair on the forward's stream around it. So that the
+pair holds under replay, each shape is captured twice: whole, and split in
+two graphs, the backbone's and the rest's, which replay back to back with
+the events recorded between them. Without a profiler the whole graph
+replays and no event is made; with one, the split pair replays (one more
+graph launch per batch). The elapsed times are read after a fetch has
+synchronised the batch (``finish_windows_vps``, ``package_ips``), from the
+pairs whose end the device has reached.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 from typing import Dict, List, Optional, Tuple
@@ -113,11 +126,63 @@ def minvis_stitch(embds: np.ndarray,
 @dataclasses.dataclass(frozen=True)
 class _Graph:
     """One captured forward: its static input, the graph, its static
-    outputs, and the launches of each of B1's wrappers inside it."""
+    outputs, and the launches of each of B1's wrappers inside it; and the
+    same forward as two graphs, the backbone's and the rest's, with the
+    rest's static outputs."""
     x: torch.Tensor
     graph: "torch.cuda.CUDAGraph"
     out: Tuple[torch.Tensor, ...]
     launches: Tuple[int, ...]
+    features: "torch.cuda.CUDAGraph"
+    heads: "torch.cuda.CUDAGraph"
+    split_out: Tuple[torch.Tensor, ...]
+
+
+def _captured(graph: "torch.cuda.CUDAGraph", pool, fn):
+    """``fn()`` captured into ``graph`` in ``pool`` on the current stream;
+    returns its outputs, the graph's static outputs."""
+    graph.capture_begin(pool=pool)
+    try:
+        return fn()
+    finally:
+        graph.capture_end()
+
+
+class _BackboneClock:
+    """CUDA event pairs around the backbone of each forward on the card
+    while a profiler runs, counted into the recorder once the device has
+    passed their end."""
+
+    def __init__(self):
+        self.pending: collections.deque = collections.deque()
+
+    @staticmethod
+    def start(device: torch.device) -> Optional["torch.cuda.Event"]:
+        """An event recorded now on ``device``'s stream, or None (no
+        profiler, or not a card): then nothing is recorded."""
+        if device.type != "cuda" or not RECORDER.active:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    def stop(self, start: Optional["torch.cuda.Event"], device: torch.device,
+             frames: int) -> None:
+        """The end of ``start``'s pair, on the same stream, and the frames
+        between them."""
+        if start is None:
+            return
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(device))
+        self.pending.append((start, end, frames))
+
+    def read(self) -> None:
+        """Counts the pairs, oldest first, whose end the device has reached;
+        waits for none."""
+        while self.pending and self.pending[0][1].query():
+            start, end, frames = self.pending.popleft()
+            count("segmenter.backbone_device_us", round(1000 * start.elapsed_time(end)))
+            count("segmenter.backbone_frames", frames)
 
 
 class SegmenterInference:
@@ -188,6 +253,7 @@ class SegmenterInference:
         self._graphs: Dict[Tuple[int, tuple], _Graph] = {}
         self._seen: set = set()
         self._capture_ctx: Dict[int, tuple] = {}
+        self._clock = _BackboneClock()
         if quantized:
             n_elems = sum(q.numel() for q, _ in quantized.values())
             logging.getLogger(__name__).info(
@@ -229,7 +295,10 @@ class SegmenterInference:
                 RECORDER.copy(dev, frames.nbytes)
                 x = torch.from_numpy(frames).to(dev)
             with span("segmenter.forward"):
-                return self._model_forward(i, x)
+                start = self._clock.start(dev)
+                feats = self._features(i, x)
+                self._clock.stop(start, dev, len(frames))
+                return self._heads(i, feats)
         with torch.cuda.device(dev):
             g = self._graphs.get(key)
             with span("segmenter.upload"):
@@ -239,46 +308,77 @@ class SegmenterInference:
             with span("segmenter.forward"):
                 if g is None:
                     g = self._graphs[key] = self._capture(i, x)
-                g.graph.replay()
+                start = self._clock.start(dev)
+                if start is None:
+                    g.graph.replay()
+                    out = g.out
+                else:
+                    g.features.replay()
+                    self._clock.stop(start, dev, len(frames))
+                    g.heads.replay()
+                    out = g.split_out
                 for fn, n in zip(fpn.KERNEL_WRAPPERS, g.launches):
                     fn.launches += n
                 count("segmenter.graph_replays")
-                return tuple(t.clone() for t in g.out)
+                return tuple(t.clone() for t in out)
 
     def _model_forward(self, i: int, x: torch.Tensor):
         """Replica i's normalization, zero pad and model on the uint8
         (B, H, W, 3) frames ``x`` on its device."""
+        return self._heads(i, self._features(i, x))
+
+    def _features(self, i: int, x: torch.Tensor):
+        """Replica i's normalization and zero pad of the uint8 frames ``x``,
+        then its backbone."""
         mean, std = self._norm[i]
         x = (x.float() - mean) / std
         h, w = x.shape[1:3]
         ph, pw = self._padded_hw(x)
         x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
+        return self._call(i, "backbone", x)
+
+    def _heads(self, i: int, feats):
+        """Replica i's pixel decoder and head on its backbone's features."""
+        return self.replicas[i].decode(self._call(i, "pixel_decoder", feats),
+                                       len(feats[0]), 1)
+
+    def _call(self, i: int, name: str, *args):
+        """Replica i's submodule ``name`` on ``args``. With int8 weights its
+        weights are dequantized inside the call, as JAX does inside its
+        jit: only the int8 tensors stay resident between calls."""
+        module = getattr(self.replicas[i], name)
         if not self._q8[i]:
-            return self.replicas[i](x)
-        # dequantized inside every forward, as JAX does inside its jit:
-        # only the int8 tensors stay resident between calls
-        weights = {k: dequantize(q, s, self.dtype) for k, (q, s) in self._q8[i].items()}
-        return torch.func.functional_call(self.replicas[i], weights, (x,))
+            return module(*args)
+        prefix = name + "."
+        weights = {k[len(prefix):]: dequantize(q, s, self.dtype)
+                   for k, (q, s) in self._q8[i].items() if k.startswith(prefix)}
+        return torch.func.functional_call(module, weights, args)
 
     def _capture(self, i: int, x: torch.Tensor) -> "_Graph":
         """Captures replica i's forward of the static input ``x`` into a
-        graph in the replica's pool, on its capture stream. The wrappers'
-        launch counters are left as they were: the capture launched
-        nothing."""
+        graph in the replica's pool, on its capture stream, then into the
+        split pair (the backbone's graph, whose static features the rest's
+        graph reads). The wrappers' launch counters are left as they were:
+        the captures launched nothing."""
         if i not in self._capture_ctx:
             self._capture_ctx[i] = (torch.cuda.graph_pool_handle(),
                                    torch.cuda.Stream(x.device))
         pool, stream = self._capture_ctx[i]
         before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
-        graph = torch.cuda.CUDAGraph()
+        graph, features, heads = (torch.cuda.CUDAGraph() for _ in range(3))
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = self._model_forward(i, x)
-        launches = []
+        launches = [fn.launches - n for fn, n in zip(fpn.KERNEL_WRAPPERS, before)]
+        # the pair straight after, on the same stream and pool: the whole
+        # graph's capture has just synchronised and emptied the cache, which
+        # ``torch.cuda.graph`` would repeat for each of the two
+        with torch.cuda.stream(stream):
+            feats = _captured(features, pool, lambda: self._features(i, x))
+            split_out = _captured(heads, pool, lambda: self._heads(i, feats))
         for fn, n in zip(fpn.KERNEL_WRAPPERS, before):
-            launches.append(fn.launches - n)
             fn.launches = n
         count("segmenter.graph_captures")
-        return _Graph(x, graph, out, tuple(launches))
+        return _Graph(x, graph, out, tuple(launches), features, heads, split_out)
 
     def weight_bytes(self) -> int:
         """Bytes of the weights resident on the first device: the model's
@@ -340,7 +440,9 @@ class SegmenterInference:
     def package_ips(self, handle) -> List[Dict]:
         """Blocking half of ``infer_frames_ips``: fetch a handle's results
         to host per-frame dicts."""
-        return [out for fusion, query in handle for out in self._package(fusion, query)]
+        outputs = [out for fusion, query in handle for out in self._package(fusion, query)]
+        self._clock.read()
+        return outputs
 
     def infer_window_vps(self, frames: np.ndarray,
                          ori_hw: Optional[Tuple[int, int]] = None,
@@ -387,6 +489,7 @@ class SegmenterInference:
         align + fuse + package."""
         shards, padded_hw, ori_hw = handle
         embds = np.concatenate([_fetch(q, torch.float32) for *_, q in shards])
+        self._clock.read()
         with span("segmenter.stitch"):
             n, Q = embds.shape[:2]
             perms = np.zeros((n, Q), np.int32)

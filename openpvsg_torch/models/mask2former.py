@@ -43,7 +43,7 @@ from openpvsg_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from openpvsg_torch.models.position_encoding import (sine_pos_encoding,
                                                      sine_pos_encoding_3d)
 from openpvsg_torch.models.resnet import ResNet
-from openpvsg_torch.models.swin import SwinTransformer
+from openpvsg_torch.models.swin import SwinTransformer, swin_window
 from openpvsg_torch.models.transformer_decoder import MaskedDecoderLayer
 from openpvsg_torch.ops.resize import resize_bilinear
 
@@ -160,7 +160,8 @@ class Mask2Former(nn.Module):
         self.cfg = cfg
         self.train_mode = train
         if cfg.backbone.kind == "swin":
-            self.backbone = SwinTransformer(cfg.backbone.swin_variant,
+            variant = cfg.backbone.swin_variant
+            self.backbone = SwinTransformer(variant, window=swin_window(variant),
                                             out_indices=cfg.backbone.out_indices)
         elif cfg.backbone.kind == "resnet":
             self.backbone = ResNet(cfg.backbone.depth, cfg.backbone.norm,
@@ -203,7 +204,14 @@ class Mask2Former(nn.Module):
             images = images[:, None]
         B, T, H, W, _ = images.shape
         feats = self.backbone(images.reshape(B * T, H, W, 3))
-        mask_features, ms_feats = self.pixel_decoder(feats)
+        return self.decode(self.pixel_decoder(feats), B, T, return_sem_seg)
+
+    def decode(self, pixel_out, B: int, T: int, return_sem_seg: bool = False):
+        """The head on the pixel decoder's output ``pixel_out`` (mask
+        features, multi-scale features) of B*T frames: ``forward``'s result
+        from there on, for a caller that runs the backbone and the pixel
+        decoder itself (the serving path, ``infer/segmenter.py``)."""
+        mask_features, ms_feats = pixel_out
 
         def unflatten(f):
             return f.reshape(B, T, *f.shape[1:])

@@ -1,9 +1,10 @@
 """Swin Transformer backbone, the port of ``openpvsg_tpu/models/swin.py``.
 
 Patch embed 4x4 + LayerNorm, four stages of pre-norm shifted-window blocks
-(window 7, relative position bias) with patch merging between them, and a
-LayerNorm on each output scale: strides 4/8/16/32 with C*(1, 2, 4, 8)
-channels, channels last (B, H, W, C), as the pixel decoder takes them.
+(relative position bias; window 7, or 12 for Swin-L, ``SWIN_WINDOWS``) with
+patch merging between them, and a LayerNorm on each output scale: strides
+4/8/16/32 with C*(1, 2, 4, 8) channels, channels last (B, H, W, C), as the
+pixel decoder takes them.
 
 The JAX package's semantics, which differ from timm's and mmdet's:
 
@@ -31,7 +32,7 @@ weights convert by the mechanical walk of ``openpvsg_torch/weights.py``.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +49,16 @@ SWIN_CONFIGS = {
     "tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
     "small": (96, (2, 2, 18, 2), (3, 6, 12, 24)),
     "base": (128, (2, 2, 18, 2), (4, 8, 16, 32)),
+    # Mask2Former's Swin-L (maskformer2_swin_large_IN21k_384_bs16_100ep.yaml)
+    "large": (192, (2, 2, 18, 2), (6, 12, 24, 48)),
 }
+# the attention window of a variant: 12 for Swin-L (its 384-pixel
+# pretraining), 7 for every other
+SWIN_WINDOWS = {"large": 12}
+
+
+def swin_window(variant: str) -> int:
+    return SWIN_WINDOWS.get(variant, 7)
 
 
 def _rel_pos_index(ws: int) -> np.ndarray:
@@ -178,15 +188,17 @@ def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 class SwinTransformer(nn.Module):
     """Returns the outputs of the stages in ``out_indices`` (strides
-    4/8/16/32), each LayerNormed, channels last."""
+    4/8/16/32), each LayerNormed, channels last. ``window`` None takes the
+    variant's (``swin_window``)."""
 
-    def __init__(self, variant: str = "tiny", window: int = 7,
+    def __init__(self, variant: str = "tiny", window: Optional[int] = None,
                  out_indices: Sequence[int] = (0, 1, 2, 3)):
         super().__init__()
         if variant not in SWIN_CONFIGS:
             raise ValueError(f"swin variant '{variant}': one of "
                              f"{sorted(SWIN_CONFIGS)}")
         embed_dim, depths, heads = SWIN_CONFIGS[variant]
+        window = swin_window(variant) if window is None else window
         self.window = window
         self.depths = depths
         self.out_indices = tuple(out_indices)

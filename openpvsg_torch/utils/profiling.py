@@ -93,6 +93,11 @@ class Recorder:
         self.request = self.batch = -1
         self._requests = 0
 
+    @property
+    def active(self) -> bool:
+        """Whether a ``torch.profiler`` session runs, so that it records."""
+        return _autograd_profiler._is_profiler_enabled
+
     def span(self, name: str):
         """A context manager: the block as the span ``name``, under the
         current request and batch."""

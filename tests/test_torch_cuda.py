@@ -57,13 +57,14 @@ def _fpn_case(B, H, W, Cin, C, Cout, dt, dev, seed=0):
 # 128 or 64; H and W not multiples of the bf16 conv's 24x8 tile, H*W not
 # one of its 192 pixels), channel counts that are multiples of 8 but not of
 # 16 or 64, output widths below one tile, the main-path width (B = 2), the
-# test CLI's IPS batch (8 frames of 360x640, padded to 384x640), and Swin-T's
+# test CLI's IPS batch (8 frames of 360x640, padded to 384x640), Swin-T's
 # stride-4 width (Cin 96: the bf16 GEMM reads K up to 128 through TMA's zero
-# fill)
+# fill), and Swin-L's at the batched cell's 8 frames (Cin 192)
 FPN_CASES = [(1, 16, 24, 32, 32, 16, 4), (2, 18, 30, 96, 64, 48, 8),
              (2, 32, 40, 136, 256, 200, 32), (1, 96, 120, 256, 256, 256, 32),
              (2, 20, 36, 64, 64, 64, 8), (2, 96, 120, 256, 256, 256, 32),
-             (8, 96, 160, 256, 256, 256, 32), (2, 96, 120, 96, 256, 256, 32)]
+             (8, 96, 160, 256, 256, 256, 32), (2, 96, 120, 96, 256, 256, 32),
+             (8, 96, 160, 192, 256, 256, 32)]
 
 
 @pytest.mark.parametrize("case", FPN_CASES)
@@ -197,10 +198,12 @@ def _fusion_case(kind, N, Q, h, w, g):
 # (N, Q, h, w, ori): tiles of 8x8 low-res pixels that end partway, ori below
 # the padded frame, one query, more queries than a 32-query ring stage holds
 # (Q = 130 ends with one query per group), the main-path width with a
-# ragged edge, and the test CLI's IPS batch (8 frames of 360x640)
+# ragged edge, the test CLI's IPS batch (8 frames of 360x640), and Swin-L's
+# 200 queries at the batched cell's 8 frames
 FUSION_SHAPES = [(1, 1, 5, 7, (20, 28)), (2, 7, 16, 20, (57, 70)),
                  (3, 100, 24, 30, (90, 120)), (3, 130, 24, 30, (81, 117)),
-                 (2, 100, 97, 121, (383, 470)), (8, 100, 96, 160, (360, 640))]
+                 (2, 100, 97, 121, (383, 470)), (8, 100, 96, 160, (360, 640)),
+                 (8, 200, 96, 160, (360, 640))]
 FUSION_KINDS = ["random", "flip_band", "ties", "tie_order", "all_dropped", "one_kept",
                 "no_skip"]
 
@@ -805,6 +808,60 @@ def test_graph_counters_under_a_profiler(dev):
     assert {k: v for k, v in counters.items() if k.startswith("segmenter.")} == {
         "segmenter.eager_forwards": 2, "segmenter.graph_captures": 1,
         "segmenter.graph_replays": 2}
+
+
+def test_swinl_replays_equal_the_eager_forward(dev):
+    """``mask2former_swinl_vps`` at its published widths (Swin-L, window 12,
+    200 queries) on the batched cell's 8 frames of 360x640 in bfloat16: the
+    whole graph's replay and the split pair's equal the eager forward bit
+    for bit."""
+    import dataclasses
+
+    from openpvsg_torch.config import mask2former_swinl_vps
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.utils.profiling import RECORDER
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = dataclasses.replace(mask2former_swinl_vps().model, object_mask_thr=0.0, iou_thr=0.1)
+    seg = SegmenterInference(cfg, random_state_dict(cfg, 0), dtype=torch.bfloat16, device=dev)
+    frames = _frames(8, 360, 640, 5)
+    want = _eager(seg, frames)
+    seg.forward_frames(frames)
+    got = [seg.forward_frames(frames)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got.append(seg.forward_frames(frames))
+    RECORDER.reset()
+    assert len(seg._graphs) == 1 and want[0].shape == (8, 200, 127)
+    for out in got:
+        for name, a, b in zip(("cls", "masks", "query"), out, want):
+            assert torch.equal(a, b), name
+
+
+def test_backbone_counters_tick_under_a_profiler_only(dev):
+    """Under a profiler each forward, eager or a replay of the split pair,
+    counts its frames and the backbone's device time, read after a later
+    fetch; the split pair's outputs equal the whole graph's bit for bit.
+    Without a profiler no event is made and the counters stay empty."""
+    from openpvsg_torch.utils.profiling import RECORDER
+
+    seg = _tiny_segmenter(dev)
+    frames = _frames(2, 64, 64, 0)
+    for _ in range(2):  # eager, then capture and the whole graph's replay
+        whole = seg.forward_frames(frames)
+    RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        split = seg.forward_frames(frames)
+        for _ in range(2):
+            seg.infer_windows_vps(frames, 2)
+        seg.infer_windows_vps(_frames(4, 64, 64, 1), 2)   # a new shape: eager
+    counters = RECORDER.snapshot()["counters"]
+    RECORDER.reset()
+    assert all(torch.equal(a, b) for a, b in zip(split, whole))
+    assert counters["segmenter.backbone_frames"] == 2 + 2 * 2 + 4
+    assert counters["segmenter.backbone_device_us"] > 0
+    assert counters["segmenter.graph_replays"] == 3 and not seg._clock.pending
+    seg.infer_windows_vps(frames, 2)
+    assert not seg._clock.pending and RECORDER.snapshot()["counters"] == {}
 
 
 def test_mesh_replicas_each_replay_their_own_graph(dev):

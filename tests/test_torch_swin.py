@@ -192,6 +192,74 @@ def test_weights_round_trip_through_flax_layout(segmenters):
 
 
 # ---------------------------------------------------------------------------
+# Swin-L and the ``mask2former_swinl_vps`` preset
+# ---------------------------------------------------------------------------
+
+def test_swin_large_has_the_published_widths():
+    """Mask2Former's Swin-L: embed dim 192 doubling per stage, blocks
+    2-2-18-2, heads 6-12-24-48 (head size 32 in every stage), MLP ratio 4,
+    window 12 with its 23²-row relative-bias table, shift 6 in every second
+    block."""
+    from openpvsg_torch.models.swin import SwinTransformer
+
+    with torch.device("meta"):
+        net = SwinTransformer("large")
+    assert net.window == 12 and net.depths == (2, 2, 18, 2)
+    assert hasattr(net, "stage2_block17") and not hasattr(net, "stage2_block18")
+    for s, (C, heads) in enumerate(zip((192, 384, 768, 1536), (6, 12, 24, 48))):
+        first, second = (getattr(net, f"stage{s}_block{b}") for b in (0, 1))
+        assert second.norm1.normalized_shape == (C,) and C // heads == 32
+        assert second.attn.num_heads == heads
+        assert second.attn.rel_bias_table.shape == (23 * 23, heads)
+        assert second.attn.rel_index.shape == (144 * 144,)
+        assert (first.shift, second.shift, second.window) == (0, 6, 12)
+        assert second.mlp_fc1.out_features == 4 * C
+    assert net.patch_embed.weight.shape == (192, 3, 4, 4)
+
+
+@pytest.mark.parametrize("variant", ["tiny", "small", "base"])
+def test_the_other_variants_keep_window_7(variant):
+    from openpvsg_torch.models.swin import SwinTransformer, swin_window
+
+    with torch.device("meta"):
+        net = SwinTransformer(variant)
+    block = net.stage0_block1
+    assert swin_window(variant) == net.window == block.window == 7
+    assert block.shift == 3 and block.attn.rel_bias_table.shape[0] == 13 * 13
+
+
+def test_swinl_preset_serves_stage2_and_reads_back(tmp_path):
+    """``mask2former_swinl_vps`` (Swin-L, the MSDA decoder, 200 queries)
+    serves VPS stage 2 through ``SegmenterInference`` and
+    ``run_query_tube_vps`` on the CPU: 4 frames of 64x64 (stride-4 grid
+    16x16, padded to 24x24) as one batch of two windows; and the preset
+    reads back through ``save_config`` / ``load_config_file``."""
+    import dataclasses
+
+    from openpvsg_torch.infer import stages
+    from openpvsg_torch.infer.segmenter import SegmenterInference
+    from openpvsg_torch.weights import random_state_dict
+
+    cfg = tcfg.get_config("mask2former_swinl_vps")
+    m = cfg.model
+    assert (m.num_queries, m.backbone.kind, m.backbone.swin_variant, m.pixel_decoder.encoder,
+            m.pixel_decoder.in_channels, m.video, m.num_frames) == (
+        200, "swin", "large", "msda", (192, 384, 768, 1536), True, 2)
+    path = str(tmp_path / "config.json")
+    tcfg.save_config(cfg, path)
+    assert tcfg.config_to_dict(tcfg.load_config_file(path)) == tcfg.config_to_dict(cfg)
+    m = dataclasses.replace(m, object_mask_thr=0.0, iou_thr=0.1)
+    seg = SegmenterInference(m, random_state_dict(m, 0), device="cpu")
+    assert seg.model.backbone.window == 12 and seg.model.head.query_feat.shape == (200, 256)
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 255, (64, 64, 3), dtype=np.uint8) for _ in range(4)]
+    n = stages.run_query_tube_vps(seg, frames, str(tmp_path / "out"), window=2,
+                                  windows_per_batch=2)
+    lines = (tmp_path / "out" / "quantitive" / "masks.txt").read_text().splitlines()
+    assert n > 0 and {int(line.split()[0]) for line in lines} == {1, 2, 3, 4}
+
+
+# ---------------------------------------------------------------------------
 # mmdet Swin checkpoints
 # ---------------------------------------------------------------------------
 
