@@ -46,13 +46,37 @@ pair holds under replay, each shape is captured twice: whole, and split in
 two graphs, the backbone's and the rest's, which replay back to back with
 the events recorded between them. Without a profiler the whole graph
 replays and no event is made; with one, the split pair replays (one more
-graph launch per batch). The elapsed times are read after a fetch has
-synchronised the batch (``finish_windows_vps``, ``package_ips``), from the
-pairs whose end the device has reached.
+graph launch per batch). The elapsed times are read once the host has
+waited for the batch's first copies (``finish_windows_vps``,
+``package_ips``), from the pairs whose end the device has reached.
+
+On the card no copy blocks the host behind later work, so that with two
+batches in flight the host packages batch b while the card runs batch b+1.
+The frames go up from page-locked memory without blocking. Each host-bound
+copy is enqueued with its producer, without blocking, into page-locked
+memory, with one CUDA event behind each group (``_HostCopies``): the
+embeddings for the stitch on the forward's stream right behind the batch's
+outputs, and after the stitch the fused maps, the aligned query and the
+last aligned embeddings. The host then waits on each group's event inside
+the ``segmenter.fetch`` span. The work after the stitch (the alignment's
+gathers and window sums, kernel B2, its copies) runs on one high-priority
+side stream per card, which first waits for the batch's own event, so that
+it runs beside the next batch's replay and not behind it; IPS enqueues its
+fusion there at dispatch. The forward's outputs that the side stream reads
+are marked with ``record_stream``, so that the caching allocator hands
+their blocks to no later forward before the side stream has passed its
+reads. The arrays handed to the caller are views of the page-locked
+tensors, which they keep alive; PyTorch's host allocator hands a freed
+block out again only once the copies recorded on it have ended. While a
+profiler runs, ``segmenter.overlapped_batches`` counts the batches whose
+results were on the host while a forward stream still had later work
+queued. The CPU keeps the synchronous path: each copy is made when the
+host waits for it.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 from typing import Dict, List, Optional, Tuple
@@ -95,6 +119,61 @@ def _fetch(t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> np.ndarray:
     with span("segmenter.fetch"):
         RECORDER.copy(t.device, t.numel() * (dtype or t.dtype).itemsize)
         return (t if dtype is None else t.to(dtype)).cpu().numpy()
+
+
+class _HostCopies:
+    """Device tensors (each cast to its dtype, None: kept) on their way to
+    host arrays. On the card the copies are enqueued when the group is
+    made, on the current stream of the tensors' device, without blocking,
+    into page-locked memory, with one event behind them; on the CPU each
+    copy is made in ``wait``, as a blocking fetch."""
+
+    def __init__(self, tensors, dtypes):
+        dev = tensors[0].device
+        self.stream = self.event = None
+        if dev.type != "cuda":
+            self.pending = list(zip(tensors, dtypes))
+            return
+        self.stream = torch.cuda.current_stream(dev)
+        self.pending = []
+        for t, dtype in zip(tensors, dtypes):
+            RECORDER.copy(dev, t.numel() * (dtype or t.dtype).itemsize)
+            t = t if dtype is None else t.to(dtype)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.pending.append(host.copy_(t, non_blocking=True))
+        self.event = torch.cuda.Event()
+        self.event.record(self.stream)
+
+    def wait(self) -> List[np.ndarray]:
+        """The host arrays, once the copies have landed."""
+        if self.event is None:
+            return [_fetch(t, dtype) for t, dtype in self.pending]
+        with span("segmenter.fetch"):
+            self.event.synchronize()
+        return [t.numpy() for t in self.pending]
+
+
+def _staged(frames: np.ndarray) -> torch.Tensor:
+    """The frames in page-locked host memory, from which a copy to the card
+    does not block the host."""
+    return torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True).copy_(
+        torch.from_numpy(frames))
+
+
+def _to_device(a: np.ndarray, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``dev``; to a card through page-locked
+    memory, on the current stream, without blocking the host."""
+    if dev.type != "cuda":
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return torch.as_tensor(a, dtype=dtype).pin_memory().to(dev, non_blocking=True)
+
+
+def _count_overlap(streams) -> None:
+    """While a profiler runs, counts ``segmenter.overlapped_batches`` when a
+    batch's results are on the host while one of its forward ``streams``
+    still has later work queued."""
+    if RECORDER.active and any(not s.query() for s in streams):
+        count("segmenter.overlapped_batches")
 
 
 def minvis_stitch(embds: np.ndarray,
@@ -254,6 +333,10 @@ class SegmenterInference:
         self._seen: set = set()
         self._capture_ctx: Dict[int, tuple] = {}
         self._clock = _BackboneClock()
+        # one high-priority side stream per card, for the work after the
+        # stitch (module docstring)
+        self._side = {dev: torch.cuda.Stream(dev, priority=-1)
+                      for dev in devices if dev.type == "cuda"}
         if quantized:
             n_elems = sum(q.numel() for q, _ in quantized.values())
             logging.getLogger(__name__).info(
@@ -293,7 +376,8 @@ class SegmenterInference:
             count("segmenter.eager_forwards")
             with span("segmenter.upload"):
                 RECORDER.copy(dev, frames.nbytes)
-                x = torch.from_numpy(frames).to(dev)
+                x = (torch.from_numpy(frames).to(dev) if dev.type != "cuda"
+                     else _staged(frames).to(dev, non_blocking=True))
             with span("segmenter.forward"):
                 start = self._clock.start(dev)
                 feats = self._features(i, x)
@@ -304,7 +388,7 @@ class SegmenterInference:
             with span("segmenter.upload"):
                 RECORDER.copy(dev, frames.nbytes)
                 x = torch.empty(frames.shape, dtype=torch.uint8, device=dev) if g is None else g.x
-                x.copy_(torch.from_numpy(frames))
+                x.copy_(_staged(frames), non_blocking=True)
             with span("segmenter.forward"):
                 if g is None:
                     g = self._graphs[key] = self._capture(i, x)
@@ -394,6 +478,25 @@ class SegmenterInference:
             self.cfg.num_stuff_classes, self.cfg.object_mask_thr,
             self.cfg.iou_thr, padded_hw, ori_hw)
 
+    @contextlib.contextmanager
+    def _on_side(self, handed):
+        """A block in which each card's side stream is its current stream.
+        ``handed`` is [(ready, tensors)]: the side stream first waits for the
+        event ``ready``, recorded on the forward's stream behind the making
+        of ``tensors``, and marks each tensor as read there. On the CPU
+        (``ready`` None) nothing changes."""
+        with contextlib.ExitStack() as stack:
+            for ready, tensors in handed:
+                if ready is not None:
+                    side = self._side[tensors[0].device]
+                    side.wait_event(ready)
+                    for t in tensors:
+                        t.record_stream(side)
+            for dev in dict.fromkeys(ts[0].device for ready, ts in handed
+                                     if ready is not None):
+                stack.enter_context(torch.cuda.stream(self._side[dev]))
+            yield
+
     def _forward_shards(self, frames: np.ndarray):
         """[(replica, cls, masks, query)] of each block's real frames."""
         _, blocks = self._split(frames)
@@ -431,16 +534,27 @@ class SegmenterInference:
         """Enqueue forward and fusion of a frame batch without waiting for
         them; ``package_ips`` fetches the results. CUDA launches are
         asynchronous, so with two handles in flight the next batch's upload
-        and forward run while the host packages this one."""
+        and forward run while the host packages this one. On the card the
+        fusion and its copies run on the side stream, behind this batch's
+        forward only."""
         ori_hw = ori_hw or tuple(frames.shape[1:3])
         padded_hw = self._padded_hw(frames)
-        return [(self._fuse(i, cls_logits, mask_logits, padded_hw, ori_hw), query)
-                for i, cls_logits, mask_logits, query in self._forward_shards(frames)]
+        handle = []
+        for i, cls_logits, mask_logits, query in self._forward_shards(frames):
+            forward = (torch.cuda.current_stream(query.device)
+                       if query.device.type == "cuda" else None)
+            ready = None if forward is None else forward.record_event()
+            with self._on_side([(ready, (cls_logits, mask_logits, query))]):
+                fusion = self._fuse(i, cls_logits, mask_logits, padded_hw, ori_hw)
+                handle.append((self._to_host(fusion, query), forward))
+        return handle
 
     def package_ips(self, handle) -> List[Dict]:
         """Blocking half of ``infer_frames_ips``: fetch a handle's results
         to host per-frame dicts."""
-        outputs = [out for fusion, query in handle for out in self._package(fusion, query)]
+        host = [copies.wait() for copies, _ in handle]
+        _count_overlap([s for _, s in handle if s is not None])
+        outputs = [out for arrays in host for out in self._package(arrays[:3], arrays[3])]
         self._clock.read()
         return outputs
 
@@ -476,9 +590,13 @@ class SegmenterInference:
                                 ori_hw: Optional[Tuple[int, int]] = None):
         """Enqueue the forward of a window batch without waiting for it:
         CUDA launches are asynchronous, so the next batch's upload and
-        forward queue up while the host stitches and packages this one."""
+        forward queue up while the host stitches and packages this one. On
+        the card the embeddings' copies for the stitch are enqueued right
+        behind the forward, on its stream."""
         ori_hw = ori_hw or tuple(frames.shape[1:3])
-        return self._forward_shards(frames), self._padded_hw(frames), ori_hw
+        shards = self._forward_shards(frames)
+        embds = [_HostCopies([query], [torch.float32]) for *_, query in shards]
+        return shards, self._padded_hw(frames), ori_hw, embds
 
     @torch.no_grad()
     def finish_windows_vps(self, handle, window: int,
@@ -487,8 +605,8 @@ class SegmenterInference:
                            return_embds: bool = False):
         """Fetch the query embeddings, run the MinVIS stitch, then
         align + fuse + package."""
-        shards, padded_hw, ori_hw = handle
-        embds = np.concatenate([_fetch(q, torch.float32) for *_, q in shards])
+        shards, padded_hw, ori_hw, embds_copies = handle
+        embds = np.concatenate([copies.wait()[0] for copies in embds_copies])
         self._clock.read()
         with span("segmenter.stitch"):
             n, Q = embds.shape[:2]
@@ -502,12 +620,18 @@ class SegmenterInference:
                     prev = seg[-1][p[-1]]
         with span("segmenter.align_fuse"):
             win_id = np.arange(n) // window
-            fused = self._align_fuse_impl(shards, perms, win_id, int(win_id[-1]) + 1,
-                                          padded_hw, ori_hw)
-        outputs = [out for fusion, query_a in fused
-                   for out in self._package(fusion, query_a)]
+            with self._on_side([(copies.event, shard[1:])
+                                for copies, shard in zip(embds_copies, shards)]):
+                fused = self._align_fuse_impl(shards, perms, win_id, int(win_id[-1]) + 1,
+                                              padded_hw, ori_hw)
+                host = [self._to_host(fusion, query_a) for fusion, query_a in fused]
+                last = (_HostCopies([fused[-1][1][-1]], [torch.float32])
+                        if return_embds else None)
+        host = [copies.wait() for copies in host]
+        _count_overlap([c.stream for c in embds_copies if c.stream is not None])
+        outputs = [out for arrays in host for out in self._package(arrays[:3], arrays[3])]
         if return_embds:
-            return outputs, _fetch(fused[-1][1][-1], torch.float32)
+            return outputs, last.wait()[0]
         return outputs
 
     def _align_fuse_impl(self, shards, perms, win_id, n_win, padded_hw, ori_hw):
@@ -519,13 +643,13 @@ class SegmenterInference:
         aligned, sums, cnt, lo = [], None, None, 0
         for i, cls_logits, mask_logits, query in shards:
             dev, r = cls_logits.device, len(cls_logits)
-            idx = torch.as_tensor(perms[lo:lo + r], dtype=torch.long, device=dev)
+            idx = _to_device(perms[lo:lo + r], torch.long, dev)
             cls_a = cls_logits.gather(
                 1, idx[:, :, None].expand(-1, -1, cls_logits.shape[2]))
             masks_a = mask_logits.gather(
                 1, idx[:, :, None, None].expand(-1, -1, *mask_logits.shape[2:]))
             query_a = query.gather(1, idx[:, :, None].expand(-1, -1, query.shape[2]))
-            wid = torch.as_tensor(win_id[lo:lo + r], dtype=torch.long, device=dev)
+            wid = _to_device(win_id[lo:lo + r], torch.long, dev)
             s = torch.zeros((n_win, *cls_a.shape[1:]), dtype=cls_a.dtype,
                             device=dev).index_add_(0, wid, cls_a)
             c = torch.zeros((n_win,), dtype=cls_a.dtype, device=dev).index_add_(
@@ -541,15 +665,20 @@ class SegmenterInference:
             out.append((self._fuse(i, cls_mean, masks_a, padded_hw, ori_hw), query_a))
         return out
 
+    @staticmethod
+    def _to_host(fusion, query) -> _HostCopies:
+        """The copies of a block's fusion outputs and its float32 query
+        features."""
+        return _HostCopies([fusion["pan_seg"], fusion["query_keep"], fusion["segment_id"],
+                            query], [None, None, None, torch.float32])
+
     def _package(self, fusion, query) -> List[Dict]:
-        """Device fusion outputs -> host per-frame dicts {'pan_results',
-        'query_feats': {segment_id: mean query feature}}."""
-        pan = _fetch(fusion["pan_seg"])
-        keep = _fetch(fusion["query_keep"])
-        seg_ids = _fetch(fusion["segment_id"])
-        q = _fetch(query, torch.float32)
+        """A block's host arrays, ``fusion`` its (pan_seg, query_keep,
+        segment_id) and ``query`` its query features, -> host per-frame dicts
+        {'pan_results', 'query_feats': {segment_id: mean query feature}}."""
+        pan, keep, seg_ids = fusion
         with span("segmenter.feats"):
             return [{"pan_results": pan[t],
                      "query_feats": query_feats_by_segment(
-                         {"query_keep": keep[t], "segment_id": seg_ids[t]}, q[t])}
+                         {"query_keep": keep[t], "segment_id": seg_ids[t]}, query[t])}
                     for t in range(pan.shape[0])]

@@ -110,10 +110,13 @@ class Recorder:
             self.counters[name] += n
 
     def copy(self, device: torch.device, nbytes: int) -> None:
-        """Counts a blocking copy of ``nbytes`` between the host and
-        ``device``, called before it: ``copies``, ``copy_bytes``, and
-        ``copies_drained`` when the device's stream had no work left (a CPU
-        device has no stream, so its copies always count)."""
+        """Counts a copy of ``nbytes`` between the host and ``device``,
+        called where it is enqueued: ``copies``, ``copy_bytes``, and
+        ``copies_drained`` when the device's current stream had no work
+        left. On the card the copies do not block the host, so one that is
+        not drained is queued behind work that the host does not wait for.
+        A CPU device has no stream, so its copies, which block, always
+        count."""
         if not _autograd_profiler._is_profiler_enabled:
             return
         c = self.counters

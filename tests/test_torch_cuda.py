@@ -876,3 +876,96 @@ def test_mesh_replicas_each_replay_their_own_graph(dev):
         got = seg.forward_frames(frames)
         assert all(torch.equal(x, y) for x, y in zip(got, first))
     assert sorted(i for i, _ in seg._graphs) == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# the depth-2 pipeline: results leave by their own events, fusion on a side
+# stream, uploads from page-locked memory
+# ---------------------------------------------------------------------------
+
+SLEEP_CYCLES = 10 ** 9   # about 0.5 s at the H100's 1.98 GHz
+
+
+def _owned(outs):
+    """Per-frame outputs as arrays of their own (not views of the
+    page-locked buffers the segmenter fetched into)."""
+    return [{"pan_results": o["pan_results"].copy(),
+             "query_feats": {k: np.array(v) for k, v in o["query_feats"].items()}}
+            for o in outs]
+
+
+def _same_outputs(got, want):
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert np.array_equal(x["pan_results"], y["pan_results"])
+        assert x["query_feats"].keys() == y["query_feats"].keys()
+        assert all(np.array_equal(x["query_feats"][k], y["query_feats"][k])
+                   for k in x["query_feats"])
+
+
+@pytest.mark.parametrize("path", ["vps", "vps_mesh", "ips"])
+def test_finishing_a_batch_does_not_wait_behind_later_work(dev, path):
+    """The graphed MSDA segmenter with batches b and b+1 in flight, then
+    about half a second of sleep on the forward's stream: batch b's results
+    reach the host while that stream still sleeps, and both batches equal
+    the serial path's bit for bit (``vps_mesh``: two replicas on the card)."""
+    from openpvsg_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=2, devices=[dev, dev]) if path == "vps_mesh" else None
+    seg = _full_segmenter(dev, "msda", torch.bfloat16, mesh=mesh)
+    batches = [_frames(8, 360, 640, k) for k in (1, 2)]
+    for _ in range(2):  # eager, then capture
+        seg.forward_frames(batches[0])
+    if path == "ips":
+        serial, enqueue, finish = seg.infer_frames_ips, seg.infer_frames_ips_async, seg.package_ips
+    else:
+        def serial(f):
+            return seg.infer_windows_vps(f, 2)
+
+        def finish(h):
+            return seg.finish_windows_vps(h, 2)
+
+        enqueue = seg.infer_windows_vps_async
+    want = [_owned(serial(f)) for f in batches]
+    stream = torch.cuda.current_stream(dev)
+    for sleep in (False, True):  # the first pass fills the page-locked pool
+        handles = [enqueue(f) for f in batches]
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        got = [_owned(finish(handles[0]))]
+        assert not sleep or not stream.query(), "batch b waited behind later work"
+        got.append(_owned(finish(handles[1])))
+        for outs, ref in zip(got, want):
+            _same_outputs(outs, ref)
+
+
+def test_stage2_files_equal_at_depth_1_and_2_and_depth_2_overlaps(dev, tmp_path):
+    """``run_query_tube_vps`` on the card, 4 windows of 2 per batch over 38
+    frames (the last batch ragged): ``masks.txt`` and the pickle are byte
+    for byte the same at depth 1 and 2, and under a profiler
+    ``segmenter.overlapped_batches`` counts at depth 2 only."""
+    from openpvsg_torch.infer.stages import run_query_tube_vps
+    from openpvsg_torch.utils.profiling import RECORDER
+
+    seg = _full_segmenter(dev, "msda", torch.bfloat16)
+    frames = _frames(38, 360, 640, 7)
+
+    def run(name, depth):
+        root = tmp_path / name
+        run_query_tube_vps(seg, frames, str(root), window=2, windows_per_batch=4,
+                           pipeline_depth=depth)
+        return tuple((root / f).read_bytes() for f in ("quantitive/masks.txt",
+                                                      "query_feats.pickle"))
+
+    run("warm", 1)  # both shapes: eager, then captured
+    files, overlapped = {}, {}
+    for depth in (1, 2):
+        RECORDER.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            files[depth] = run(f"depth{depth}", depth)
+        counters = RECORDER.snapshot()["counters"]
+        RECORDER.reset()
+        assert counters["batches"] == 5 and counters["copies"] == 7 * 5
+        overlapped[depth] = counters.get("segmenter.overlapped_batches", 0)
+    assert files[1] == files[2] and len(files[1][0]) > 0
+    assert overlapped[1] == 0 and overlapped[2] >= 1, overlapped

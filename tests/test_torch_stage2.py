@@ -237,13 +237,15 @@ def test_stage2_spans_are_flat_and_cover_the_table(traced_stage2):
 def test_stage2_counters(segmenters, traced_stage2):
     """One upload and six fetches per batch at one replica, their bytes,
     and frames, batches and segments as the outputs count them (a CPU
-    device has no stream, so each of its copies counts as drained)."""
+    device has no stream, so each of its copies counts as drained, and no
+    batch counts as overlapped)."""
     _, seg = segmenters
     snap, _, root = traced_stage2
     c = snap["counters"]
     batches = VIDEOS * -(-T_FRAMES // PER_BATCH)
     assert c["batches"] == batches and c["frames"] == VIDEOS * T_FRAMES
     assert c["copies"] == c["copies_drained"] == 7 * batches
+    assert "segmenter.overlapped_batches" not in c
     lines = sum(len(_stage2_files(root / f"on{v}")[0].splitlines()) for v in range(VIDEOS))
     assert c["segments"] == lines > 0
     Q, C = seg.cfg.num_queries, seg.cfg.decoder.feat_channels
