@@ -2325,8 +2325,7 @@ def run_reference_model(torch, np, seed, wrappers, dense_train):
     # one window's tensors: encoders timed alone, B1 and B2 against plain
     model = seg.model
     x = torch.from_numpy(np.stack(frames[:2])).cuda()
-    mean, std = seg._norm[0]
-    x = (x.float() - mean) / std
+    x = (x.float() - seg.replicas[0].mean) / seg.replicas[0].std
     x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 24)).to(torch.bfloat16)
     pdec = model.pixel_decoder
     with torch.no_grad():
@@ -3086,16 +3085,18 @@ def attribute_launches(seg, wrappers):
     launches to its replica's row. Returns the rows (one dict per replica)."""
     rows = [{fn.__name__: 0 for fn in wrappers} for _ in seg.replicas]
 
-    def wrap(method):
-        def wrapped(i, *args, **kw):
+    def wrap(method, replica=None):
+        def wrapped(*args, **kw):
             before = launch_counts(wrappers)
-            out = method(i, *args, **kw)
+            out = method(*args, **kw)
+            row = rows[args[0] if replica is None else replica]
             for name, n in launch_counts(wrappers).items():
-                rows[i][name] += n - before[name]
+                row[name] += n - before[name]
             return out
         return wrapped
 
-    seg._forward = wrap(seg._forward)
+    for i, replica in enumerate(seg.replicas):
+        replica.forward = wrap(replica.forward, i)
     seg._fuse = wrap(seg._fuse)
     return rows
 
@@ -3133,8 +3134,7 @@ def mesh_serving(torch, np, cfg, state, seed, wrappers, dev, n_frames=16):
                     runs[kind] = {"masks": f.read(), "seconds": seconds,
                                   "launches": launch_counts(wrappers),
                                   "per_replica": per_replica,
-                                  "replica_devices": [str(next(m.parameters()).device)
-                                                      for m in seg.replicas]}
+                                  "replica_devices": [str(r.device) for r in seg.replicas]}
                 del seg
             rows[name] = {
                 "frames": n_frames, "window": 2, "windows_per_batch_mesh": 2,
@@ -3810,7 +3810,7 @@ def run_port_remainder(torch, np, seed, wrappers, cfg, state, stage2_masks, dev)
         # quantized and dequantized on the card must give the same bits
         folded = {k: v.to(dev) for k, v in fold_frozen_bn(state).items()}
         _, want = quantize_state_int8(folded, scopes=("backbone", "pixel_decoder"))
-        got = segs["on"]._q8[0]
+        got = segs["on"].replicas[0].q8
         q8_differ = {"keys": set(got) != set(want), "int8": 0, "scales": 0, "dequantized": 0}
         for k in set(got) & set(want):
             q8_differ["int8"] += not torch.equal(got[k][0], want[k][0])

@@ -85,7 +85,7 @@ def mesh_stage2(torch, np, cs, n, seed, wrappers):
                 seconds = time.perf_counter() - t0
                 with open(os.path.join(root, "quantitive", "masks.txt"), "rb") as f:
                     runs[kind] = (f.read(), seconds, per_replica,
-                                  [str(next(m.parameters()).device) for m in seg.replicas])
+                                  [str(r.device) for r in seg.replicas])
                 del seg
             rows[name] = {"masks_txt_identical": runs["mesh"][0] == runs["serial"][0],
                           "serial_frames_per_s": 16 / runs["serial"][1],

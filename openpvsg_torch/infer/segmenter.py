@@ -24,31 +24,32 @@ meet on the host and the first device. The one-device path is the mesh of
 one replica.
 
 On the card each replica replays its forward (the normalization and zero
-pad, then ``Mask2Former.forward``, kernel B1 included) as one CUDA graph
-per batch shape: the first call with a shape runs eagerly (which also
-warms cuBLAS, cuDNN and B1's one-time setup), the second captures the
-forward and replays it, later calls replay. Only a shape that repeats is
-captured. Each graph reads a static uint8 input that the upload copies the
-frames into, and its outputs are copied out after each replay, since
-batches stay in flight while the next replay overwrites them. A replica's
-graphs share one memory pool: all replay on one stream, and each one's
-outputs are copied out before the next. CPU tensors, and a replica with
-int8 weights (whose point is that only the int8 tensors stay resident
-between calls, where a graph's pool would keep the dequantized ones),
-always run eagerly. The graphs hold the model as it was when each was
-captured: the model is not changed after the first forward.
+pad, then ``Mask2Former``, kernel B1 included) as two CUDA graphs per
+batch shape, the backbone's and the rest's, which replay back to back:
+the first call with a shape runs eagerly (which also warms cuBLAS, cuDNN
+and B1's one-time setup), the second captures the pair and replays it,
+later calls replay. Only a shape that repeats is captured. The backbone's
+graph reads a static uint8 input that the upload copies the frames into,
+the rest's graph reads the backbone's static features, and the rest's
+outputs are copied out after each replay, since batches stay in flight
+while the next replay overwrites them. A replica's graphs share one memory
+pool: all replay on one stream, and each one's outputs are copied out
+before the next. CPU tensors, and a replica with int8 weights (whose point
+is that only the int8 tensors stay resident between calls, where a graph's
+pool would keep the dequantized ones), always run eagerly. The graphs hold
+the model as it was when each was captured: the model is not changed after
+the first forward. Each replica (``_Replica``) keeps its own model,
+constants, int8 weights, graphs, pool and streams.
 
 While a profiler runs, the recorder's counters ``segmenter.backbone_device_us``
 and ``segmenter.backbone_frames`` add up the backbone's device time (the
 frames' normalization and zero pad, then the backbone) and the frames it
-ran, from a CUDA event pair on the forward's stream around it. So that the
-pair holds under replay, each shape is captured twice: whole, and split in
-two graphs, the backbone's and the rest's, which replay back to back with
-the events recorded between them. Without a profiler the whole graph
-replays and no event is made; with one, the split pair replays (one more
-graph launch per batch). The elapsed times are read once the host has
-waited for the batch's first copies (``finish_windows_vps``,
-``package_ips``), from the pairs whose end the device has reached.
+ran, from a CUDA event pair on the forward's stream around it: around the
+eager backbone, or between the two graphs' replays. Without a profiler no
+event is made; the same pair of graphs replays either way. The elapsed
+times are read once the host has waited for the batch's first copies
+(``finish_windows_vps``, ``package_ips``), from the pairs whose end the
+device has reached.
 
 On the card no copy blocks the host behind later work, so that with two
 batches in flight the host packages batch b while the card runs batch b+1.
@@ -56,22 +57,22 @@ The frames go up from page-locked memory without blocking. Each host-bound
 copy is enqueued with its producer, without blocking, into page-locked
 memory, with one CUDA event behind each group (``_HostCopies``): the
 embeddings for the stitch on the forward's stream right behind the batch's
-outputs, and after the stitch the fused maps, the aligned query and the
-last aligned embeddings. The host then waits on each group's event inside
-the ``segmenter.fetch`` span. The work after the stitch (the alignment's
-gathers and window sums, kernel B2, its copies) runs on one high-priority
-side stream per card, which first waits for the batch's own event, so that
-it runs beside the next batch's replay and not behind it; IPS enqueues its
-fusion there at dispatch. The forward's outputs that the side stream reads
-are marked with ``record_stream``, so that the caching allocator hands
-their blocks to no later forward before the side stream has passed its
-reads. The arrays handed to the caller are views of the page-locked
-tensors, which they keep alive; PyTorch's host allocator hands a freed
-block out again only once the copies recorded on it have ended. While a
-profiler runs, ``segmenter.overlapped_batches`` counts the batches whose
-results were on the host while a forward stream still had later work
-queued. The CPU keeps the synchronous path: each copy is made when the
-host waits for it.
+outputs, and after the stitch the fused maps, the aligned query and, when
+asked for, the last aligned embeddings. The host then waits on each group's
+event inside the ``segmenter.fetch`` span. The work after the stitch (the
+alignment's gathers and window sums, kernel B2, its copies) runs on one
+high-priority side stream per card, which first waits for the batch's own
+event, so that it runs beside the next batch's replay and not behind it;
+IPS enqueues its fusion there at dispatch. The forward's outputs that the
+side stream reads are marked with ``record_stream``, so that the caching
+allocator hands their blocks to no later forward before the side stream has
+passed its reads. The arrays handed to the caller are views of the
+page-locked tensors, which they keep alive; PyTorch's host allocator hands
+a freed block out again only once the copies recorded on it have ended.
+While a profiler runs, ``segmenter.overlapped_batches`` counts the batches
+whose results were on the host while a forward stream still had later work
+queued. The CPU keeps the synchronous path: each copy is made when the host
+waits for it.
 """
 from __future__ import annotations
 
@@ -153,19 +154,18 @@ class _HostCopies:
         return [t.numpy() for t in self.pending]
 
 
-def _staged(frames: np.ndarray) -> torch.Tensor:
-    """The frames in page-locked host memory, from which a copy to the card
-    does not block the host."""
-    return torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True).copy_(
-        torch.from_numpy(frames))
-
-
-def _to_device(a: np.ndarray, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``dev``; to a card through page-locked
-    memory, on the current stream, without blocking the host."""
-    if dev.type != "cuda":
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-    return torch.as_tensor(a, dtype=dtype).pin_memory().to(dev, non_blocking=True)
+def _upload(a: np.ndarray, dev: torch.device, dtype: Optional[torch.dtype] = None,
+            into: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The host array ``a`` (cast to ``dtype``) on ``dev``: copied into
+    ``into`` when given, else into a new tensor. To a card the copy goes
+    from page-locked memory, on the current stream, without blocking the
+    host."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if dev.type == "cuda":
+        t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+    if into is None:
+        into = torch.empty(t.shape, dtype=t.dtype, device=dev)
+    return into.copy_(t, non_blocking=True)
 
 
 def _count_overlap(streams) -> None:
@@ -204,17 +204,14 @@ def minvis_stitch(embds: np.ndarray,
 
 @dataclasses.dataclass(frozen=True)
 class _Graph:
-    """One captured forward: its static input, the graph, its static
-    outputs, and the launches of each of B1's wrappers inside it; and the
-    same forward as two graphs, the backbone's and the rest's, with the
-    rest's static outputs."""
+    """One captured forward: its static input, the backbone's graph and the
+    rest's, the rest's static outputs, and the launches of each of B1's
+    wrappers inside the pair."""
     x: torch.Tensor
-    graph: "torch.cuda.CUDAGraph"
-    out: Tuple[torch.Tensor, ...]
-    launches: Tuple[int, ...]
     features: "torch.cuda.CUDAGraph"
     heads: "torch.cuda.CUDAGraph"
-    split_out: Tuple[torch.Tensor, ...]
+    out: Tuple[torch.Tensor, ...]
+    launches: Tuple[int, ...]
 
 
 def _captured(graph: "torch.cuda.CUDAGraph", pool, fn):
@@ -264,6 +261,110 @@ class _BackboneClock:
             count("segmenter.backbone_frames", frames)
 
 
+class _Replica:
+    """The model on one device of the mesh and what its forward keeps
+    there: the normalization constants, the int8 weights and their scales,
+    the captured forwards by batch shape and the shapes seen, the graphs'
+    memory pool and capture stream (made at the first capture), and
+    ``side``, the side stream of its card (None on the CPU), which the
+    replicas on one card share."""
+
+    MEAN = (123.675, 116.28, 103.53)
+    STD = (58.395, 57.12, 57.375)
+
+    def __init__(self, model: Mask2Former, device: torch.device, side, quantized,
+                 dtype: torch.dtype, pad_divisor: int, clock: _BackboneClock):
+        self.model, self.device, self.side = model, device, side
+        self.dtype, self.pad_divisor, self.clock = dtype, pad_divisor, clock
+        self.mean = torch.tensor(self.MEAN, dtype=torch.float32, device=device)
+        self.std = torch.tensor(self.STD, dtype=torch.float32, device=device)
+        self.q8 = {k: (q.to(device), s.to(device)) for k, (q, s) in quantized.items()}
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.seen: set = set()
+        self.pool = self.stream = None
+
+    @torch.no_grad()
+    def forward(self, frames: np.ndarray):
+        """The forward of (B, H, W, 3) uint8 frames on this device: eager,
+        or on the card from the second call with a shape on, a replay of
+        the shape's pair of graphs (captured first if there is none) whose
+        outputs are returned as copies. A replay advances B1's launch
+        counters by the launches its capture recorded."""
+        dev = self.device
+        graphed = dev.type == "cuda" and not self.q8 and frames.shape in self.seen
+        self.seen.add(frames.shape)
+        g = self.graphs.get(frames.shape)
+        with torch.cuda.device(dev) if graphed else contextlib.nullcontext():
+            with span("segmenter.upload"):
+                RECORDER.copy(dev, frames.nbytes)
+                x = _upload(frames, dev, into=None if g is None else g.x)
+            with span("segmenter.forward"):
+                if graphed and g is None:
+                    g = self.graphs[frames.shape] = self._capture(x)
+                start = self.clock.start(dev)
+                if g is None:
+                    count("segmenter.eager_forwards")
+                    feats = self.features(x)
+                    self.clock.stop(start, dev, len(frames))
+                    return self.heads(feats)
+                g.features.replay()
+                self.clock.stop(start, dev, len(frames))
+                g.heads.replay()
+                for fn, n in zip(fpn.KERNEL_WRAPPERS, g.launches):
+                    fn.launches += n
+                count("segmenter.graph_replays")
+                return tuple(t.clone() for t in g.out)
+
+    def features(self, x: torch.Tensor):
+        """The normalization and zero pad of the uint8 frames ``x``, then
+        the backbone."""
+        x = (x.float() - self.mean) / self.std
+        h, w = x.shape[1:3]
+        ph, pw = pad_to_divisor(h, w, self.pad_divisor)
+        x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
+        return self.call("backbone", x)
+
+    def heads(self, feats):
+        """The pixel decoder and head on the backbone's features."""
+        return self.model.decode(self.call("pixel_decoder", feats), len(feats[0]), 1)
+
+    def call(self, name: str, *args):
+        """The submodule ``name`` on ``args``. With int8 weights its
+        weights are dequantized inside the call, as JAX does inside its
+        jit: only the int8 tensors stay resident between calls."""
+        module = getattr(self.model, name)
+        if not self.q8:
+            return module(*args)
+        prefix = name + "."
+        weights = {k[len(prefix):]: dequantize(q, s, self.dtype)
+                   for k, (q, s) in self.q8.items() if k.startswith(prefix)}
+        return torch.func.functional_call(module, weights, args)
+
+    def _capture(self, x: torch.Tensor) -> _Graph:
+        """Captures the forward of the static input ``x`` as the pair of
+        graphs in this replica's pool, on its capture stream: the
+        backbone's, whose static features the rest's reads, then the
+        rest's. The wrappers' launch counters are left as they were: the
+        captures launched nothing."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+        before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
+        features, heads = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        # once for the pair, as ``torch.cuda.graph`` does for each capture:
+        # the queued work ends and the cache is emptied before capturing
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(self.stream):
+            feats = _captured(features, self.pool, lambda: self.features(x))
+            out = _captured(heads, self.pool, lambda: self.heads(feats))
+        launches = [fn.launches - n for fn, n in zip(fpn.KERNEL_WRAPPERS, before)]
+        for fn, n in zip(fpn.KERNEL_WRAPPERS, before):
+            fn.launches = n
+        count("segmenter.graph_captures")
+        return _Graph(x, features, heads, out, tuple(launches))
+
+
 class SegmenterInference:
     """Owns the model on one device, or its replicas over a mesh, and runs
     forward + stitch + fusion.
@@ -282,9 +383,6 @@ class SegmenterInference:
     them (``torch.func.functional_call``); kernel B1 takes the dequantized
     stride-4 weights.
     """
-
-    MEAN = (123.675, 116.28, 103.53)
-    STD = (58.395, 57.12, 57.375)
 
     def __init__(self, cfg: Mask2FormerConfig, state_dict: Dict[str, torch.Tensor],
                  dtype: torch.dtype = torch.float32, device=None,
@@ -319,24 +417,15 @@ class SegmenterInference:
             del model.get_submodule(owner)._parameters[name]
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=dtype).eval()
-        self.replicas = [self.model] if mesh is None else replicate(self.model, mesh)
-        devices = [next(m.parameters()).device for m in self.replicas]
-        self._norm = [(torch.tensor(self.MEAN, dtype=torch.float32, device=dev),
-                       torch.tensor(self.STD, dtype=torch.float32, device=dev))
-                      for dev in devices]
-        # the int8 weights and their scales, one copy on each replica's device
-        self._q8 = [{k: (q.to(dev), s.to(dev)) for k, (q, s) in quantized.items()}
-                    for dev in devices]
-        # the captured forwards by (replica, batch shape), the shapes seen
-        # once, and each replica's graph memory pool and capture stream
-        self._graphs: Dict[Tuple[int, tuple], _Graph] = {}
-        self._seen: set = set()
-        self._capture_ctx: Dict[int, tuple] = {}
-        self._clock = _BackboneClock()
+        models = [self.model] if mesh is None else replicate(self.model, mesh)
+        devices = [next(m.parameters()).device for m in models]
         # one high-priority side stream per card, for the work after the
         # stitch (module docstring)
-        self._side = {dev: torch.cuda.Stream(dev, priority=-1)
-                      for dev in devices if dev.type == "cuda"}
+        side = {dev: torch.cuda.Stream(dev, priority=-1)
+                for dev in devices if dev.type == "cuda"}
+        self._clock = _BackboneClock()
+        self.replicas = [_Replica(m, dev, side.get(dev), quantized, dtype, pad_divisor,
+                                  self._clock) for m, dev in zip(models, devices)]
         if quantized:
             n_elems = sum(q.numel() for q, _ in quantized.values())
             logging.getLogger(__name__).info(
@@ -361,114 +450,11 @@ class SegmenterInference:
         return n, [(i, block, min(b, n - i * b))
                    for i, block in enumerate(blocks) if n > i * b]
 
-    @torch.no_grad()
-    def _forward(self, i: int, frames: np.ndarray):
-        """Replica i's forward of (B, H, W, 3) uint8 frames on its device:
-        eager, or on the card from the second call with a shape on, a
-        replay of the shape's graph (captured first if there is none) whose
-        outputs are returned as copies. A replay advances B1's launch
-        counters by the launches its capture recorded."""
-        dev = self._norm[i][0].device
-        key = (i, frames.shape)
-        graphed = dev.type == "cuda" and not self._q8[i]
-        if not graphed or key not in self._seen:
-            self._seen.add(key)
-            count("segmenter.eager_forwards")
-            with span("segmenter.upload"):
-                RECORDER.copy(dev, frames.nbytes)
-                x = (torch.from_numpy(frames).to(dev) if dev.type != "cuda"
-                     else _staged(frames).to(dev, non_blocking=True))
-            with span("segmenter.forward"):
-                start = self._clock.start(dev)
-                feats = self._features(i, x)
-                self._clock.stop(start, dev, len(frames))
-                return self._heads(i, feats)
-        with torch.cuda.device(dev):
-            g = self._graphs.get(key)
-            with span("segmenter.upload"):
-                RECORDER.copy(dev, frames.nbytes)
-                x = torch.empty(frames.shape, dtype=torch.uint8, device=dev) if g is None else g.x
-                x.copy_(_staged(frames), non_blocking=True)
-            with span("segmenter.forward"):
-                if g is None:
-                    g = self._graphs[key] = self._capture(i, x)
-                start = self._clock.start(dev)
-                if start is None:
-                    g.graph.replay()
-                    out = g.out
-                else:
-                    g.features.replay()
-                    self._clock.stop(start, dev, len(frames))
-                    g.heads.replay()
-                    out = g.split_out
-                for fn, n in zip(fpn.KERNEL_WRAPPERS, g.launches):
-                    fn.launches += n
-                count("segmenter.graph_replays")
-                return tuple(t.clone() for t in out)
-
-    def _model_forward(self, i: int, x: torch.Tensor):
-        """Replica i's normalization, zero pad and model on the uint8
-        (B, H, W, 3) frames ``x`` on its device."""
-        return self._heads(i, self._features(i, x))
-
-    def _features(self, i: int, x: torch.Tensor):
-        """Replica i's normalization and zero pad of the uint8 frames ``x``,
-        then its backbone."""
-        mean, std = self._norm[i]
-        x = (x.float() - mean) / std
-        h, w = x.shape[1:3]
-        ph, pw = self._padded_hw(x)
-        x = torch.nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h)).to(self.dtype)
-        return self._call(i, "backbone", x)
-
-    def _heads(self, i: int, feats):
-        """Replica i's pixel decoder and head on its backbone's features."""
-        return self.replicas[i].decode(self._call(i, "pixel_decoder", feats),
-                                       len(feats[0]), 1)
-
-    def _call(self, i: int, name: str, *args):
-        """Replica i's submodule ``name`` on ``args``. With int8 weights its
-        weights are dequantized inside the call, as JAX does inside its
-        jit: only the int8 tensors stay resident between calls."""
-        module = getattr(self.replicas[i], name)
-        if not self._q8[i]:
-            return module(*args)
-        prefix = name + "."
-        weights = {k[len(prefix):]: dequantize(q, s, self.dtype)
-                   for k, (q, s) in self._q8[i].items() if k.startswith(prefix)}
-        return torch.func.functional_call(module, weights, args)
-
-    def _capture(self, i: int, x: torch.Tensor) -> "_Graph":
-        """Captures replica i's forward of the static input ``x`` into a
-        graph in the replica's pool, on its capture stream, then into the
-        split pair (the backbone's graph, whose static features the rest's
-        graph reads). The wrappers' launch counters are left as they were:
-        the captures launched nothing."""
-        if i not in self._capture_ctx:
-            self._capture_ctx[i] = (torch.cuda.graph_pool_handle(),
-                                   torch.cuda.Stream(x.device))
-        pool, stream = self._capture_ctx[i]
-        before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
-        graph, features, heads = (torch.cuda.CUDAGraph() for _ in range(3))
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            out = self._model_forward(i, x)
-        launches = [fn.launches - n for fn, n in zip(fpn.KERNEL_WRAPPERS, before)]
-        # the pair straight after, on the same stream and pool: the whole
-        # graph's capture has just synchronised and emptied the cache, which
-        # ``torch.cuda.graph`` would repeat for each of the two
-        with torch.cuda.stream(stream):
-            feats = _captured(features, pool, lambda: self._features(i, x))
-            split_out = _captured(heads, pool, lambda: self._heads(i, feats))
-        for fn, n in zip(fpn.KERNEL_WRAPPERS, before):
-            fn.launches = n
-        count("segmenter.graph_captures")
-        return _Graph(x, graph, out, tuple(launches), features, heads, split_out)
-
     def weight_bytes(self) -> int:
         """Bytes of the weights resident on the first device: the model's
         parameters and buffers, and the int8 tensors and their scales."""
         tensors = [*self.model.parameters(), *self.model.buffers(),
-                   *(t for pair in self._q8[0].values() for t in pair)]
+                   *(t for pair in self.replicas[0].q8.values() for t in pair)]
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def _fuse(self, i: int, cls_logits, mask_logits, padded_hw, ori_hw):
@@ -481,20 +467,21 @@ class SegmenterInference:
     @contextlib.contextmanager
     def _on_side(self, handed):
         """A block in which each card's side stream is its current stream.
-        ``handed`` is [(ready, tensors)]: the side stream first waits for the
-        event ``ready``, recorded on the forward's stream behind the making
-        of ``tensors``, and marks each tensor as read there. On the CPU
-        (``ready`` None) nothing changes."""
+        ``handed`` is [(replica, ready, tensors)]: the replica's side stream
+        first waits for the event ``ready``, recorded on the forward's
+        stream behind the making of ``tensors``, and marks each tensor as
+        read there. On the CPU (``ready`` None) nothing changes."""
+        sides = []
         with contextlib.ExitStack() as stack:
-            for ready, tensors in handed:
+            for i, ready, tensors in handed:
                 if ready is not None:
-                    side = self._side[tensors[0].device]
+                    side = self.replicas[i].side
                     side.wait_event(ready)
                     for t in tensors:
                         t.record_stream(side)
-            for dev in dict.fromkeys(ts[0].device for ready, ts in handed
-                                     if ready is not None):
-                stack.enter_context(torch.cuda.stream(self._side[dev]))
+                    sides.append(side)
+            for side in dict.fromkeys(sides):
+                stack.enter_context(torch.cuda.stream(side))
             yield
 
     def _forward_shards(self, frames: np.ndarray):
@@ -502,7 +489,7 @@ class SegmenterInference:
         _, blocks = self._split(frames)
         out = []
         for i, block, real in blocks:
-            cls_logits, mask_logits, query = self._forward(i, block)
+            cls_logits, mask_logits, query = self.replicas[i].forward(block)
             out.append((i, cls_logits[:real], mask_logits[:real], query[:real]))
         return out
 
@@ -544,7 +531,7 @@ class SegmenterInference:
             forward = (torch.cuda.current_stream(query.device)
                        if query.device.type == "cuda" else None)
             ready = None if forward is None else forward.record_event()
-            with self._on_side([(ready, (cls_logits, mask_logits, query))]):
+            with self._on_side([(i, ready, (cls_logits, mask_logits, query))]):
                 fusion = self._fuse(i, cls_logits, mask_logits, padded_hw, ori_hw)
                 handle.append((self._to_host(fusion, query), forward))
         return handle
@@ -620,7 +607,7 @@ class SegmenterInference:
                     prev = seg[-1][p[-1]]
         with span("segmenter.align_fuse"):
             win_id = np.arange(n) // window
-            with self._on_side([(copies.event, shard[1:])
+            with self._on_side([(shard[0], copies.event, shard[1:])
                                 for copies, shard in zip(embds_copies, shards)]):
                 fused = self._align_fuse_impl(shards, perms, win_id, int(win_id[-1]) + 1,
                                               padded_hw, ori_hw)
@@ -643,13 +630,13 @@ class SegmenterInference:
         aligned, sums, cnt, lo = [], None, None, 0
         for i, cls_logits, mask_logits, query in shards:
             dev, r = cls_logits.device, len(cls_logits)
-            idx = _to_device(perms[lo:lo + r], torch.long, dev)
+            idx = _upload(perms[lo:lo + r], dev, torch.long)
             cls_a = cls_logits.gather(
                 1, idx[:, :, None].expand(-1, -1, cls_logits.shape[2]))
             masks_a = mask_logits.gather(
                 1, idx[:, :, None, None].expand(-1, -1, *mask_logits.shape[2:]))
             query_a = query.gather(1, idx[:, :, None].expand(-1, -1, query.shape[2]))
-            wid = _to_device(win_id[lo:lo + r], torch.long, dev)
+            wid = _upload(win_id[lo:lo + r], dev, torch.long)
             s = torch.zeros((n_win, *cls_a.shape[1:]), dtype=cls_a.dtype,
                             device=dev).index_add_(0, wid, cls_a)
             c = torch.zeros((n_win,), dtype=cls_a.dtype, device=dev).index_add_(

@@ -207,11 +207,11 @@ def run_query_tube_vps(
             pending.append(dispatch(next_i))
             next_i += 1
         RECORDER.batch, raw, handle = pending.popleft()
-        outputs, prev_embds = segmenter.finish_windows_vps(
+        outputs = segmenter.finish_windows_vps(
             handle, window, prev_embds=prev_embds,
-            chain_windows=chain_windows, return_embds=True)
-        if not chain_windows:
-            prev_embds = None
+            chain_windows=chain_windows, return_embds=chain_windows)
+        if chain_windows:
+            outputs, prev_embds = outputs
         with span("stages.tubes"):
             count("batches")
             count("frames", len(raw))

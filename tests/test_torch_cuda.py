@@ -715,8 +715,9 @@ def _tiny_segmenter(dev, seed=0, **kw):
 
 def _eager(seg, frames, i=0):
     """Replica i's forward of ``frames`` run eagerly."""
+    replica = seg.replicas[i]
     with torch.no_grad():
-        return seg._model_forward(i, torch.from_numpy(frames).to(seg._norm[i][0].device))
+        return replica.heads(replica.features(torch.from_numpy(frames).to(replica.device)))
 
 
 def _frames(n, h, w, seed):
@@ -743,7 +744,7 @@ def test_graphed_forward_equals_the_eager_forward(dev, case):
         want = _eager(seg, frames)
         for name, a, b in zip(("cls", "masks", "query"), got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), (k, name)
-        assert len(seg._graphs) == (k > 0)
+        assert len(seg.replicas[0].graphs) == (k > 0)
 
 
 def test_two_batches_in_flight_keep_their_outputs(dev):
@@ -765,7 +766,7 @@ def test_two_batches_in_flight_keep_their_outputs(dev):
         for x, y in zip(out, serial):
             assert np.array_equal(x["pan_results"], y["pan_results"])
             assert x["query_feats"].keys() == y["query_feats"].keys()
-    assert len(seg._graphs) == 1
+    assert len(seg.replicas[0].graphs) == 1
 
 
 def test_int8_segmenter_never_captures(dev):
@@ -778,7 +779,7 @@ def test_int8_segmenter_never_captures(dev):
         outs = [seg.forward_frames(frames) for _ in range(3)]
     counters = RECORDER.snapshot()["counters"]
     RECORDER.reset()
-    assert seg._graphs == {} and counters["segmenter.eager_forwards"] == 3
+    assert seg.replicas[0].graphs == {} and counters["segmenter.eager_forwards"] == 3
     assert "segmenter.graph_captures" not in counters
     assert all(torch.equal(x, y) for out in outs[1:] for x, y in zip(out, outs[0]))
 
@@ -813,8 +814,8 @@ def test_graph_counters_under_a_profiler(dev):
 def test_swinl_replays_equal_the_eager_forward(dev):
     """``mask2former_swinl_vps`` at its published widths (Swin-L, window 12,
     200 queries) on the batched cell's 8 frames of 360x640 in bfloat16: the
-    whole graph's replay and the split pair's equal the eager forward bit
-    for bit."""
+    pair of graphs replayed without a profiler and under one equals the
+    eager forward bit for bit."""
     import dataclasses
 
     from openpvsg_torch.config import mask2former_swinl_vps
@@ -831,32 +832,34 @@ def test_swinl_replays_equal_the_eager_forward(dev):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         got.append(seg.forward_frames(frames))
     RECORDER.reset()
-    assert len(seg._graphs) == 1 and want[0].shape == (8, 200, 127)
+    assert len(seg.replicas[0].graphs) == 1 and want[0].shape == (8, 200, 127)
     for out in got:
         for name, a, b in zip(("cls", "masks", "query"), out, want):
             assert torch.equal(a, b), name
 
 
 def test_backbone_counters_tick_under_a_profiler_only(dev):
-    """Under a profiler each forward, eager or a replay of the split pair,
-    counts its frames and the backbone's device time, read after a later
-    fetch; the split pair's outputs equal the whole graph's bit for bit.
-    Without a profiler no event is made and the counters stay empty."""
+    """Under a profiler each forward, eager or a replay of the pair of
+    graphs, counts its frames and the backbone's device time, read after a
+    later fetch; the pair's replays without a profiler and under one equal
+    the eager forward bit for bit. Without a profiler no event is made and
+    the counters stay empty."""
     from openpvsg_torch.utils.profiling import RECORDER
 
     seg = _tiny_segmenter(dev)
     frames = _frames(2, 64, 64, 0)
-    for _ in range(2):  # eager, then capture and the whole graph's replay
-        whole = seg.forward_frames(frames)
+    for _ in range(2):  # eager, then capture and the pair's replay
+        untraced = seg.forward_frames(frames)
     RECORDER.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        split = seg.forward_frames(frames)
+        traced = seg.forward_frames(frames)
         for _ in range(2):
             seg.infer_windows_vps(frames, 2)
         seg.infer_windows_vps(_frames(4, 64, 64, 1), 2)   # a new shape: eager
     counters = RECORDER.snapshot()["counters"]
     RECORDER.reset()
-    assert all(torch.equal(a, b) for a, b in zip(split, whole))
+    want = _eager(seg, frames)
+    assert all(torch.equal(a, b) for out in (untraced, traced) for a, b in zip(out, want))
     assert counters["segmenter.backbone_frames"] == 2 + 2 * 2 + 4
     assert counters["segmenter.backbone_device_us"] > 0
     assert counters["segmenter.graph_replays"] == 3 and not seg._clock.pending
@@ -875,7 +878,7 @@ def test_mesh_replicas_each_replay_their_own_graph(dev):
     for _ in range(2):
         got = seg.forward_frames(frames)
         assert all(torch.equal(x, y) for x, y in zip(got, first))
-    assert sorted(i for i, _ in seg._graphs) == [0, 1]
+    assert [len(replica.graphs) for replica in seg.replicas] == [1, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -965,7 +968,7 @@ def test_stage2_files_equal_at_depth_1_and_2_and_depth_2_overlaps(dev, tmp_path)
             files[depth] = run(f"depth{depth}", depth)
         counters = RECORDER.snapshot()["counters"]
         RECORDER.reset()
-        assert counters["batches"] == 5 and counters["copies"] == 7 * 5
+        assert counters["batches"] == 5 and counters["copies"] == 6 * 5
         overlapped[depth] = counters.get("segmenter.overlapped_batches", 0)
     assert files[1] == files[2] and len(files[1][0]) > 0
     assert overlapped[1] == 0 and overlapped[2] >= 1, overlapped

@@ -171,14 +171,15 @@ def test_int8_segmenter_matches_jax(variables, tmp_path, caplog):
         seg = SegmenterInference(_tiny(tcfg), state, device="cpu", int8_weights=True)
         SegmenterInference(_tiny(tcfg), state, dtype=torch.bfloat16, device="cpu",
                            int8_weights=True)
-    n_el = sum(q.numel() for q, _ in seg._q8[0].values())
+    q8 = seg.replicas[0].q8
+    n_el = sum(q.numel() for q, _ in q8.values())
     msgs = [r.getMessage() for r in caplog.records if "int8 weights" in r.getMessage()]
-    assert msgs == [f"int8 weights: {len(seg._q8[0])} kernels quantized, "
+    assert msgs == [f"int8 weights: {len(q8)} kernels quantized, "
                     f"{3 * n_el / 1e6:.1f} MB of device memory saved (from torch.float32)",
-                    f"int8 weights: {len(seg._q8[0])} kernels quantized, "
+                    f"int8 weights: {len(q8)} kernels quantized, "
                     f"{n_el / 1e6:.1f} MB of device memory saved (from torch.bfloat16)"]
     names = {n for n, _ in seg.model.named_parameters()}
-    assert not names & set(seg._q8[0])
+    assert not names & set(q8)
     plain = SegmenterInference(_tiny(tcfg), state, device="cpu")
     assert seg.weight_bytes() < plain.weight_bytes()
     frames = _frames(5)
@@ -211,10 +212,10 @@ def test_int8_segmenter_on_a_mesh_keeps_int8_on_each_replica(variables):
     one = SegmenterInference(_tiny(tcfg), state, device="cpu", int8_weights=True)
     mesh = SegmenterInference(_tiny(tcfg), state, int8_weights=True,
                               mesh=make_mesh(n_data=2, devices=["cpu"] * 2))
-    assert len(mesh.replicas) == len(mesh._q8) == 2
-    for replica, q8 in zip(mesh.replicas, mesh._q8):
-        assert q8.keys() == one._q8[0].keys()
-        assert not {n for n, _ in replica.named_parameters()} & set(q8)
+    assert len(mesh.replicas) == 2
+    for replica in mesh.replicas:
+        assert replica.q8.keys() == one.replicas[0].q8.keys()
+        assert not {n for n, _ in replica.model.named_parameters()} & set(replica.q8)
     frames = _frames(15, n=3)
     for a, b in zip(one.forward_frames(frames), mesh.forward_frames(frames)):
         _close_to_scale(b.numpy(), a.numpy(), 1e-5)

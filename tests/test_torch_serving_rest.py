@@ -429,7 +429,7 @@ def test_vps_cli_traces_the_first_video(tmp_path):
     assert {s[3] for s in spans["spans"]} == {spans["spans"][0][3]}    # one video
     assert spans["counters"] == summary["counters"]
     assert summary["counters"]["frames"] == 4 and summary["counters"]["batches"] == 2
-    assert summary["spans"]["segmenter.fetch"]["calls"] == 12
+    assert summary["spans"]["segmenter.fetch"]["calls"] == 10
     assert summary["spans"]["stages.write_tubes"]["calls"] == 1
     assert os.path.exists(os.path.join(traced, "trace.json"))
     assert len(os.listdir(os.path.join(work, "val_save_qf"))) >= 2
