@@ -25,7 +25,14 @@ Phases, each printing one JSON line:
              bound restated per input (bytes, FP32 or SFU operations) and
              the time of one CTA alone. Any tolerance exceeded fails (the
              fusion pass has none: one differing owner, bit or area fails),
-             and so does a chain whose two calls differ in any bit.
+             and so does a chain whose two calls differ in any bit. Then B3,
+             Swin's window attention, at Swin-L's stage-1 and stage-3 shapes
+             of an 8-frame 384x640 batch and Swin-T's stage-1 shape of phase
+             13's 2-frame 360x480 forwards (window 7), shifted and
+             unshifted, bfloat16 and float32: error against the plain
+             version, kernel, bound and plain times, one
+             ``scaled_dot_product_attention`` call with the same additive
+             bias and mask as a yardstick (``library_ms``), and its launch.
 4. reference — the full-width model on a small input, GPU (kernels) against
              CPU (plain versions) in float32.
 5. stage 2 — ``run_query_tube_vps`` (window 2) with the ``mask2former_vps``
@@ -138,8 +145,9 @@ Phases, each printing one JSON line:
              batch's shapes. It fails when a CLI exits non-zero, a loss is
              not finite, the resumed run does not start at epoch 1, the IPS
              pan_results differ on more than 0.1% of the pixels, the test CLI
-             did not launch B1 or B2, a train run launched either, or a
-             kernel disagrees with its plain version.
+             did not launch B1 or B2 or launched B3 (R-50 has no Swin), a
+             train run launched any kernel, or a kernel disagrees with its
+             plain version.
 11. stage2_ips — IPS stage 2 at full ``mask2former_ips`` width, from
              torch's default TF32 settings (the tracker turns TF32 off for
              its device work): (a) ``run_query_tube_ips`` on one synthetic
@@ -200,8 +208,8 @@ Phases, each printing one JSON line:
              ``run_query_tube_vps`` with it in bf16 (random weights from the
              seed, ``object_mask_thr=0.0``, ``iou_thr=0.1``) on 16 360x480
              frames, window 2, launch counts zeroed just before and read just
-             after (B1 and B2 must launch): frames/s, peak GiB, and whether a
-             rerun's ``masks.txt`` is byte-identical; (d) training, float32,
+             after (B1, B2 and B3 must launch): frames/s, peak GiB, and
+             whether a rerun's ``masks.txt`` is byte-identical; (d) training, float32,
              from torch's default TF32 settings: 4 full-width steps of 16
              clips of 2 384x480 frames with the host Hungarian (median step
              ms of steps 2-4, host LAP share, frames/s, peak GiB); one
@@ -214,7 +222,7 @@ Phases, each printing one JSON line:
              mask logits) on the card and on the CPU: the same assignment,
              the loss within 1e-3 (1e-2 with bf16 logits) relative and every
              gradient within 1e-2 (5e-2) of its scale. Fails on any check
-             above, a non-finite loss, or a B1 or B2 launch in training.
+             above, a non-finite loss, or a B1, B2 or B3 launch in training.
 14. end2end — stages 3-5 and end-to-end serving at full width, from the
              seed: (a) a rich synthetic PVSG root (``make_synthetic_data
              --style rich --oracle-stage2``: 4 train and 2 val videos of 120
@@ -245,7 +253,7 @@ Phases, each printing one JSON line:
              shapes). It fails when a CLI exits non-zero, a video writes no
              ``relations.pickle``, a loss is not finite, a relation CLI
              launches B1 or B2, end2end (VPS or IPS) or streaming does not
-             launch both, a ``triplets.json`` or (with a
+             launch both or end2end launches B3, a ``triplets.json`` or (with a
              ``relations.pickle``) ``protocol_metrics.json`` is missing, the
              ring is not on the card, the two streaming backends' triplets
              differ where adjacent scores are more than 1e-4 apart, or a
@@ -317,7 +325,10 @@ Phases, each printing one JSON line:
    library ms at end2end VPS's shape; since phase 15 with
    ``multi_device_launches`` (the bf16 mesh run) and
    ``multi_device_launches_per_replica``; since phase 16 with
-   ``port_remainder_launches``, each serving path's count), then the last line
+   ``port_remainder_launches``, each serving path's count), and B3's rows,
+   one per phase-3 shape, dtype and shift, each with phase 13's Swin-T
+   stage-2 launches as ``launches`` and its own call's as
+   ``isolated_launches``; then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -676,6 +687,80 @@ def check_fusion(torch, gen, dev, sm_clock_hz, N=2, h=96, w=120, ori=(360, 480),
     return rows
 
 
+WATTN_DESIGN = ("mma.sync m16n8k16 bf16, one CTA per (window, head), k and v through "
+                "cp.async, a warp's 16 x L float32 logits, bias, mask and softmax in "
+                "registers, p reused as the A fragment of p.v")
+# (at, windows, heads, window, padded grid of one image), head size 32:
+# Swin-L's stages 1 and 3 on the batched cell's 8 frames of 384x640 (window
+# 12), and Swin-T's stage 1 on phase 13's forwards of 2 frames of 360x480,
+# padded to 384x480 (window 7: 49 tokens, an odd count in padded tiles)
+WATTN_SHAPES = (("swinl_stage1", 896, 6, 12, (96, 168)),
+                ("swinl_stage3", 64, 24, 12, (24, 48)),
+                ("swint_stage1", 504, 3, 7, (98, 126)))
+
+
+def check_window_attention(torch, gen, dev):
+    """B3 against its plain version at ``WATTN_SHAPES`` (Swin-L's stage-1
+    and stage-3 shapes, Swin-T's stage 1), shifted (the additive mask) and
+    unshifted, in bfloat16 and float32 (TF32 off); kernel, bound and plain
+    times, and as a yardstick only one ``scaled_dot_product_attention`` call
+    with the same additive bias and mask (the port never calls it). Returns
+    {(at, shifted, dtype): row}."""
+    from openpvsg_torch.kernels import window_attention as wa
+    from openpvsg_torch.models.swin import shift_window_mask
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hd = 32
+    rows = {}
+    for at, nW, H, window, grid in WATTN_SHAPES:
+        L = window * window
+        C = H * hd
+        qkv32 = torch.randn((nW, L, 3 * C), generator=gen).to(dev)
+        bias = torch.randn((H, L, L), generator=gen).to(dev)
+        for shifted in (False, True):
+            mask = (torch.from_numpy(shift_window_mask(*grid, window, window // 2)).to(dev)
+                    if shifted else None)
+            nM = 0 if mask is None else mask.shape[0]
+            for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+                es = 2 if dt == torch.bfloat16 else 4
+                qkv = qkv32.to(dt)
+                before = wa.window_attention.launches
+                got = wa.window_attention(qkv, bias, mask, H)
+                launches = wa.window_attention.launches - before
+                ref = wa.window_attention_plain(qkv, bias, mask, H)
+                torch.cuda.synchronize()
+                q, k, v = qkv.reshape(nW, L, 3, H, hd).permute(2, 0, 3, 1, 4)
+                add = bias[None] if mask is None else bias[None] + mask[:, None]
+                if mask is not None:
+                    q, k, v = (t.reshape(nW // nM, nM, H, L, hd) for t in (q, k, v))
+                add = add.to(dt)
+                tol = (1e-4 if dt == torch.float32 else 1e-2) * max(
+                    1.0, float(ref.float().abs().max()))
+                flops = 4 * nW * H * L * L * hd
+                nbytes = 4 * nW * L * C * es + (H + nM) * L * L * 4
+                bound_ms, bound_by = bound(flops, nbytes, dt_name)
+                ms = time_ms(torch, lambda: wa.window_attention(qkv, bias, mask, H))
+                row = {"max_abs_err": max_abs(got, ref), "tol": tol, "launches": launches,
+                       "ms": ms,
+                       "plain_ms": time_ms(torch, lambda: wa.window_attention_plain(
+                           qkv, bias, mask, H)),
+                       "library_ms": time_ms(torch, lambda: sdpa(q, k, v, attn_mask=add)),
+                       "call_ms": call_ms(torch, lambda: wa.window_attention(qkv, bias, mask, H)),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
+                       "design": WATTN_DESIGN if dt == torch.bfloat16 else SIMT}
+                row["ok"] = row["max_abs_err"] <= tol and launches == 1
+                emit({"phase": "kernel_vs_plain", "kernel": "window_attention",
+                      "dtype": dt_name, "at": at, "shifted": shifted,
+                      "shape": [nW, H, L, hd], **row})
+                if not row["ok"]:
+                    fail(f"window_attention {at} {dt_name} shifted={shifted} disagrees "
+                         f"with its plain version: {row}")
+                rows[(at, shifted, dt_name)] = row
+                del got, ref, q, k, v, add
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the model
 # ---------------------------------------------------------------------------
@@ -899,6 +984,21 @@ def train_batch(np, clips, frames, hw, padded_hw, max_instances, num_classes,
 
 def launch_counts(wrappers):
     return {fn.__name__: fn.launches for fn in wrappers}
+
+
+def path_launches(config, launches):
+    """A CLI summary's ``launches`` (every kernel wrapper of the inference
+    path) split into those of the kernels ``config``'s serving path runs,
+    B1 and B2 and with a Swin backbone B3, and those of the others."""
+    from openpvsg_torch.config import get_config
+    from openpvsg_torch.kernels import fpn, fusion, window_attention
+
+    wrappers = fpn.KERNEL_WRAPPERS + fusion.KERNEL_WRAPPERS
+    if get_config(config).model.backbone.kind == "swin":
+        wrappers += window_attention.KERNEL_WRAPPERS
+    names = {fn.__name__ for fn in wrappers}
+    return ({k: v for k, v in launches.items() if k in names},
+            {k: v for k, v in launches.items() if k not in names})
 
 
 def float64_grads(torch, cfg, state, images, batch, assigned):
@@ -1809,7 +1909,7 @@ def run_stage1_cli(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
             if not row["losses_finite"]:
                 problems.append(f"train {name}: a loss is not finite")
             if any(row["launches"].values()):
-                problems.append(f"train {name} launched B1 or B2: {row['launches']}")
+                problems.append(f"train {name} launched a kernel: {row['launches']}")
         run_dir = os.path.join(work, "mask2former_vps")
         ckpt = os.path.join(run_dir, "epoch_2")
         if not os.path.exists(ckpt):
@@ -1828,8 +1928,10 @@ def run_stage1_cli(torch, np, seed, gen, dev, sm_clock_hz, wrappers):
                     "pq": test["pq"], "vpq": test["vpq"], "printed": printed.splitlines(),
                     "peak_gib": test["peak_gib"], "launches": test["launches"]}
         emit({"phase": "stage1_cli", "part": "test", **test_row})
-        if not all(test["launches"].values()):
-            problems.append(f"the test CLI did not launch every kernel: {test['launches']}")
+        used, others = path_launches("mask2former_vps", test["launches"])
+        if not all(used.values()) or any(others.values()):
+            problems.append("the test CLI did not launch every kernel of its path, or "
+                            f"launched another: {test['launches']}")
         if not all(math.isfinite(v) for v in (test["pq"]["PQ"], test["vpq"]["VPQ"])):
             problems.append("PQ or VPQ is not finite")
 
@@ -2914,8 +3016,10 @@ def run_end2end_clis(tmp, data, anno, ckpt, problems):
                "peak_gib": s["peak_gib"], "launches": s["launches"]}
         emit({"phase": "end2end", "part": f"end2end_{ps}", **row})
         launches[ps] = s["launches"]
-        if not all(s["launches"].values()):
-            problems.append(f"end2end {ps} did not launch every kernel: {s['launches']}")
+        used, others = path_launches(config, s["launches"])
+        if not all(used.values()) or any(others.values()):
+            problems.append(f"end2end {ps} did not launch every kernel of its path, or "
+                            f"launched another: {s['launches']}")
         for v in videos:
             root = os.path.join(out_dir, v["vid"])
             if not os.path.exists(os.path.join(root, "triplets.json")):
@@ -3921,7 +4025,7 @@ def main(argv=None) -> int:
         return 2
     try:
         import numpy as np
-        from openpvsg_torch.kernels import build, fpn, fusion
+        from openpvsg_torch.kernels import build, fpn, fusion, window_attention
         from openpvsg_torch.weights import random_state_dict
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
@@ -3963,6 +4067,7 @@ def main(argv=None) -> int:
                            text=True, check=True, timeout=60).stdout.split()[0]
     fusion_rows = check_fusion(torch, gen, dev, float(clock) * 1e6)
     fusion_row = fusion_rows["smoke"]
+    wattn_rows = check_window_attention(torch, gen, dev)
 
     # 4. the full-width model on a small input against the CPU path
     cfg = stage2_config()
@@ -4021,9 +4126,11 @@ def main(argv=None) -> int:
     ref_launches = run_reference_model(torch, np, args.seed, wrappers, dense_train)
 
     # 13. the Swin-T segmenter: B1 at its stride-4 width, the model card
-    # against CPU, stage 2 (its launch counts are zeroed just before its run
-    # and read just after), training and the trainer's options
-    swin_fpn, swin_launches = run_swin(torch, np, args.seed, gen, dev, wrappers)
+    # against CPU, stage 2 (the launch counts of B1, B2 and B3 are zeroed
+    # just before its run and read just after), training and the trainer's
+    # options, which may launch none of the three
+    swin_fpn, swin_launches = run_swin(torch, np, args.seed, gen, dev,
+                                       wrappers + window_attention.KERNEL_WRAPPERS)
 
     # 14. stages 3-5 and end2end through the CLIs (their launch counts come
     # from their summary lines), the streaming engine (its launch counts are
@@ -4126,6 +4233,19 @@ def main(argv=None) -> int:
         entry.update(port_remainder_launches={path: counts[fn.__name__]
                                               for path, counts in rest_launches.items()})
         kernels.append(entry)
+    # B3: its launches are phase 13's Swin-T stage 2 (one a Swin block a
+    # forward); each row's own call is its isolated launch
+    for (at, shifted, dt_name), row in wattn_rows.items():
+        kernels.append({"name": "window_attention", "route": "cuda",
+                        "source": "openpvsg_torch/csrc/window_attention.cu",
+                        "replaces": "none (XLA fuses the chain)", "at": at,
+                        "shifted": shifted, "dtype": dt_name,
+                        "launches": swin_launches["window_attention"],
+                        "isolated_launches": row["launches"],
+                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms",
+                                               "tflops", "bound_share", "design")},
+                        "parity": "pass"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

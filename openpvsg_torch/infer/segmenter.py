@@ -24,7 +24,8 @@ meet on the host and the first device. The one-device path is the mesh of
 one replica.
 
 On the card each replica replays its forward (the normalization and zero
-pad, then ``Mask2Former``, kernel B1 included) as two CUDA graphs per
+pad, then ``Mask2Former``, kernels B1 and, with a Swin backbone, B3
+included) as two CUDA graphs per
 batch shape, the backbone's and the rest's, which replay back to back:
 the first call with a shape runs eagerly (which also warms cuBLAS, cuDNN
 and B1's one-time setup), the second captures the pair and replays it,
@@ -88,7 +89,7 @@ import torch
 from openpvsg_torch import native
 from openpvsg_torch.config import Mask2FormerConfig
 from openpvsg_torch.data.pipeline import pad_to_divisor
-from openpvsg_torch.kernels import fpn
+from openpvsg_torch.kernels import fpn, window_attention
 from openpvsg_torch.models.fusion import panoptic_fusion, query_feats_by_segment
 from openpvsg_torch.models.mask2former import Mask2Former
 from openpvsg_torch.models.resnet import fold_frozen_bn
@@ -96,6 +97,11 @@ from openpvsg_torch.parallel.mesh import replicate, split_blocks
 from openpvsg_torch.parallel.sp import gather, pad_frames_for_mesh
 from openpvsg_torch.utils.profiling import RECORDER, count, span
 from openpvsg_torch.utils.quantize import dequantize, quantize_state_int8
+
+
+# the wrappers of the kernels inside the captured forward, whose launch
+# counters a replay advances: B1 and B3 (B2 runs after the stitch, eagerly)
+GRAPHED_WRAPPERS = fpn.KERNEL_WRAPPERS + window_attention.KERNEL_WRAPPERS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -205,8 +211,8 @@ def minvis_stitch(embds: np.ndarray,
 @dataclasses.dataclass(frozen=True)
 class _Graph:
     """One captured forward: its static input, the backbone's graph and the
-    rest's, the rest's static outputs, and the launches of each of B1's
-    wrappers inside the pair."""
+    rest's, the rest's static outputs, and the launches of each of
+    ``GRAPHED_WRAPPERS`` inside the pair."""
     x: torch.Tensor
     features: "torch.cuda.CUDAGraph"
     heads: "torch.cuda.CUDAGraph"
@@ -288,8 +294,8 @@ class _Replica:
         """The forward of (B, H, W, 3) uint8 frames on this device: eager,
         or on the card from the second call with a shape on, a replay of
         the shape's pair of graphs (captured first if there is none) whose
-        outputs are returned as copies. A replay advances B1's launch
-        counters by the launches its capture recorded."""
+        outputs are returned as copies. A replay advances B1's and B3's
+        launch counters by the launches its capture recorded."""
         dev = self.device
         graphed = dev.type == "cuda" and not self.q8 and frames.shape in self.seen
         self.seen.add(frames.shape)
@@ -310,7 +316,7 @@ class _Replica:
                 g.features.replay()
                 self.clock.stop(start, dev, len(frames))
                 g.heads.replay()
-                for fn, n in zip(fpn.KERNEL_WRAPPERS, g.launches):
+                for fn, n in zip(GRAPHED_WRAPPERS, g.launches):
                     fn.launches += n
                 count("segmenter.graph_replays")
                 return tuple(t.clone() for t in g.out)
@@ -349,7 +355,7 @@ class _Replica:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-        before = [fn.launches for fn in fpn.KERNEL_WRAPPERS]
+        before = [fn.launches for fn in GRAPHED_WRAPPERS]
         features, heads = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         # once for the pair, as ``torch.cuda.graph`` does for each capture:
         # the queued work ends and the cache is emptied before capturing
@@ -358,8 +364,8 @@ class _Replica:
         with torch.cuda.stream(self.stream):
             feats = _captured(features, self.pool, lambda: self.features(x))
             out = _captured(heads, self.pool, lambda: self.heads(feats))
-        launches = [fn.launches - n for fn, n in zip(fpn.KERNEL_WRAPPERS, before)]
-        for fn, n in zip(fpn.KERNEL_WRAPPERS, before):
+        launches = [fn.launches - n for fn, n in zip(GRAPHED_WRAPPERS, before)]
+        for fn, n in zip(GRAPHED_WRAPPERS, before):
             fn.launches = n
         count("segmenter.graph_captures")
         return _Graph(x, features, heads, out, tuple(launches))

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from openpvsg_torch.kernels import build, refuse_autograd
+from openpvsg_torch.kernels import check_tensor as _check
 from openpvsg_torch.ops.resize import resize_bilinear
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,19 +60,6 @@ def _lib():
             fn.restype = _I
         lib._bound = True
     return lib
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be 16-byte aligned")
 
 
 def _check_channels(what: str, dt: torch.dtype, **dims: int):

@@ -13,8 +13,8 @@ with the 2-D sine encoding for T=1 and the 3-D one for clips.
   masks, computed from the mask features pre-resized to each level (resize
   is linear, so this equals resizing the full-resolution logits).
 - Training (``train=True``, stage 1): (B, T) clips, training-mode
-  BatchNorm for 'sync_bn', the unfused stride-4 chain, and mask logits for
-  every layer (deep supervision).
+  BatchNorm for 'sync_bn', the unfused stride-4 chain and Swin's plain
+  window attention, and mask logits for every layer (deep supervision).
 
 A query whose mask blocks every token attends everywhere
 (``openpvsg_tpu/models/mask2former.py:129-135``). The mask logits
@@ -162,7 +162,8 @@ class Mask2Former(nn.Module):
         if cfg.backbone.kind == "swin":
             variant = cfg.backbone.swin_variant
             self.backbone = SwinTransformer(variant, window=swin_window(variant),
-                                            out_indices=cfg.backbone.out_indices)
+                                            out_indices=cfg.backbone.out_indices,
+                                            train=train)
         elif cfg.backbone.kind == "resnet":
             self.backbone = ResNet(cfg.backbone.depth, cfg.backbone.norm,
                                    cfg.backbone.out_indices, train=train)

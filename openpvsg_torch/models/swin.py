@@ -24,6 +24,11 @@ The JAX package's semantics, which differ from timm's and mmdet's:
   padding an odd size, and its reduction has no bias;
 - the patch embedding is a 4x4 stride-4 conv with flax's 'SAME' padding.
 
+``train=True`` (stage 1) runs the window-attention core as
+``window_attention_plain``, in torch operations with autograd, on every
+device; inference runs ``window_attention``: kernel B3 on the card, the
+plain form for CPU tensors (``kernels/window_attention.py``).
+
 Module names follow the flax tree (``patch_embed``, ``patch_norm``,
 ``stage{s}_block{b}.{norm1,attn.{qkv,proj,rel_bias_table},norm2,mlp_fc1,
 mlp_fc2}``, ``downsample{s}.{norm,reduction}``, ``out_norm{s}``), so the
@@ -31,7 +36,6 @@ weights convert by the mechanical walk of ``openpvsg_torch/weights.py``.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +43,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from openpvsg_torch.kernels.window_attention import (window_attention,
+                                                     window_attention_plain)
 from openpvsg_torch.models.layers import Conv, Dense, LayerNorm
 
 LN_EPS = 1e-6
@@ -88,9 +94,10 @@ def shift_window_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window: int):
+    def __init__(self, dim: int, num_heads: int, window: int, train: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.train_mode = train
         self.qkv = Dense(dim, 3 * dim)
         self.rel_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
@@ -104,31 +111,23 @@ class WindowAttention(nn.Module):
                 ) -> torch.Tensor:
         """x (nW, L, C) window tokens; attn_mask (nM, L, L) additive float32
         or None, where nW is a multiple of nM and window w takes mask row
-        w % nM (the windows of each image in turn)."""
+        w % nM (the windows of each image in turn). The core between the
+        two projections is ``kernels/window_attention.py``'s: the plain form
+        with ``train``, else kernel B3 on the card."""
         nW, L, C = x.shape
         H = self.num_heads
-        hd = C // H
-        qkv = self.qkv(x).reshape(nW, L, 3, H, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (nW, H, L, hd)
-        logits = torch.einsum("whld,whmd->whlm", q.float(), k.float()) / math.sqrt(hd)
         bias = self.rel_bias_table[self.rel_index].reshape(L, L, H).permute(2, 0, 1)
-        logits = logits + bias[None].float()
-        if attn_mask is not None:
-            nM = attn_mask.shape[0]
-            logits = (logits.reshape(nW // nM, nM, H, L, L)
-                      + attn_mask[None, :, None]).reshape(nW, H, L, L)
-        attn = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.einsum("whlm,whmd->whld", attn, v)
-        return self.proj(out.transpose(1, 2).reshape(nW, L, C))
+        core = window_attention_plain if self.train_mode else window_attention
+        return self.proj(core(self.qkv(x), bias, attn_mask, H))
 
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, train: bool = False):
         super().__init__()
         self.window, self.shift = window, shift
         self.norm1 = LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, num_heads, window)
+        self.attn = WindowAttention(dim, num_heads, window, train)
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim)
@@ -189,10 +188,10 @@ def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 class SwinTransformer(nn.Module):
     """Returns the outputs of the stages in ``out_indices`` (strides
     4/8/16/32), each LayerNormed, channels last. ``window`` None takes the
-    variant's (``swin_window``)."""
+    variant's (``swin_window``); ``train`` picks the attention core."""
 
     def __init__(self, variant: str = "tiny", window: Optional[int] = None,
-                 out_indices: Sequence[int] = (0, 1, 2, 3)):
+                 out_indices: Sequence[int] = (0, 1, 2, 3), train: bool = False):
         super().__init__()
         if variant not in SWIN_CONFIGS:
             raise ValueError(f"swin variant '{variant}': one of "
@@ -209,7 +208,7 @@ class SwinTransformer(nn.Module):
             for blk in range(depth):
                 self.add_module(f"stage{stage}_block{blk}", SwinBlock(
                     dim, heads[stage], window,
-                    shift=0 if blk % 2 == 0 else window // 2))
+                    shift=0 if blk % 2 == 0 else window // 2, train=train))
             if stage in self.out_indices:
                 self.add_module(f"out_norm{stage}", LayerNorm(dim, eps=LN_EPS))
             if stage < len(depths) - 1:

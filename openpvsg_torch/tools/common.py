@@ -249,8 +249,9 @@ def kernel_launches(since: Optional[dict] = None) -> dict:
     """The launch counts of every kernel wrapper of the inference path, less
     the counts ``since`` holds (a tool passes those it found at its start, so
     a run in a process that launched kernels before counts only its own)."""
-    from openpvsg_torch.kernels import fpn, fusion
+    from openpvsg_torch.kernels import fpn, fusion, window_attention
 
     since = since or {}
     return {fn.__name__: fn.launches - since.get(fn.__name__, 0)
-            for fn in fpn.KERNEL_WRAPPERS + fusion.KERNEL_WRAPPERS}
+            for fn in (fpn.KERNEL_WRAPPERS + fusion.KERNEL_WRAPPERS
+                       + window_attention.KERNEL_WRAPPERS)}

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from openpvsg_torch.kernels import fpn, fusion
+from openpvsg_torch.kernels import window_attention as wa
 
 pytestmark = pytest.mark.cuda
 
@@ -268,6 +269,95 @@ def test_fusion_checks_its_arguments(dev):
         fusion.fusion_maps(low.double(), scores, (32, 40), (32, 40))
     with pytest.raises(ValueError):
         fusion.fusion_maps(low, scores[:, :3].contiguous(), (32, 40), (32, 40))
+
+
+# ---------------------------------------------------------------------------
+# B3: Swin's window attention
+# ---------------------------------------------------------------------------
+
+# (windows, heads, head size, window, padded grid of one image): Swin-L's
+# four stages on the batched cell's 8 frames of 384x640 (stride-4 grid
+# 96x160, each stage padded to window 12), Swin-T's first stage on 2 such
+# frames (window 7), and the kernel's other head sizes on two images, one
+# at 16 tokens a window
+WATTN_CASES = [(896, 6, 32, 12, (96, 168)), (224, 12, 32, 12, (48, 84)),
+               (64, 24, 32, 12, (24, 48)), (16, 48, 32, 12, (12, 24)),
+               (644, 3, 32, 7, (98, 161)), (12, 2, 16, 7, (14, 21)),
+               (8, 2, 64, 12, (24, 24)), (16, 4, 64, 4, (8, 16))]
+
+
+def _wattn_case(nW, H, hd, window, grid, shifted, dt, dev, seed=0):
+    from openpvsg_torch.models.swin import shift_window_mask
+
+    g = torch.Generator().manual_seed(seed)
+    L = window * window
+    qkv = torch.randn((nW, L, 3 * H * hd), generator=g).to(dev, dt)
+    bias = torch.randn((H, L, L), generator=g).to(dev)
+    mask = (torch.from_numpy(shift_window_mask(*grid, window, window // 2)).to(dev)
+            if shifted else None)
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("case", WATTN_CASES)
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_window_attention_matches_plain(dev, case, shifted, dt):
+    nW, H, hd, window, grid = case
+    qkv, bias, mask = _wattn_case(nW, H, hd, window, grid, shifted, dt, dev)
+    before = wa.window_attention.launches
+    got = wa.window_attention(qkv, bias, mask, H)
+    assert wa.window_attention.launches == before + 1
+    assert got.shape == (nW, window * window, H * hd) and got.dtype == dt
+    _close(got, wa.window_attention_plain(qkv, bias, mask, H),
+           1e-4 if dt == torch.float32 else 1e-2)
+
+
+def test_window_attention_checks_its_arguments(dev):
+    """Head sizes outside 16, 32 and 64 and windows over 144 tokens raise;
+    so do a mask whose rows do not divide the windows and a dtype the
+    kernel does not take."""
+    qkv, bias, mask = _wattn_case(12, 2, 16, 7, (14, 21), True, torch.bfloat16, dev)
+    for hd in (8, 48):
+        with pytest.raises(ValueError, match="head size"):
+            wa.window_attention(torch.zeros((2, 49, 6 * hd), dtype=torch.bfloat16,
+                                            device=dev), bias, None, 2)
+    with pytest.raises(ValueError, match="tokens"):
+        wa.window_attention(torch.zeros((2, 169, 96), dtype=torch.bfloat16, device=dev),
+                            torch.zeros((2, 169, 169), device=dev), None, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        wa.window_attention(qkv[:7].contiguous(), bias, mask, 2)
+    with pytest.raises(TypeError):
+        wa.window_attention(qkv.half(), bias, mask, 2)
+
+
+def test_window_attention_refuses_autograd(dev):
+    """With grad mode on and an input that requires grad, the kernel's
+    wrapper raises, as B1's and B2's do; ``WindowAttention(train=True)``
+    (training) calls the plain form on the card instead: no launch, its
+    output equals the plain form's and its gradient reaches the input."""
+    from openpvsg_torch.models.swin import WindowAttention, shift_window_mask
+
+    qkv, bias, mask = _wattn_case(12, 2, 16, 7, (14, 21), True, torch.float32, dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wa.window_attention(qkv.requires_grad_(), bias, mask, 2)
+    mask = torch.from_numpy(shift_window_mask(14, 21, 7, 3)).to(dev)
+    x = torch.randn((12, 49, 32), generator=torch.Generator().manual_seed(1)).to(dev)
+    x.requires_grad_()
+    before = wa.window_attention.launches
+    for train in (False, True):
+        net = WindowAttention(32, 2, 7, train=train).to(dev)
+        if not train:
+            with pytest.raises(RuntimeError, match="no backward"):
+                net(x, mask)
+            continue
+        out = net(x, mask)
+        out.square().sum().backward()
+        with torch.no_grad():
+            want = net.proj(wa.window_attention_plain(
+                net.qkv(x), net.rel_bias_table[net.rel_index].reshape(49, 49, 2)
+                .permute(2, 0, 1), mask, 2))
+        assert torch.equal(out, want) and x.grad is not None
+    assert wa.window_attention.launches == before
 
 
 def test_model_gpu_path_matches_cpu_path(dev):
@@ -644,7 +734,7 @@ def test_tracker_device_work_on_the_card_matches_the_cpu_with_tf32_on(dev):
 
 
 def test_kernels_launch_on_their_tensors_device(dev):
-    """B1's three launches and B2 on ``cuda:1`` from a thread whose current
+    """B1's three launches, B2 and B3 on ``cuda:1`` from a thread whose current
     device is ``cuda:0``: each wrapper launches under its input's device,
     so the library's per-device caches and the launch itself are that
     card's. Skips with fewer than two GPUs."""
@@ -665,6 +755,10 @@ def test_kernels_launch_on_their_tensors_device(dev):
     assert got[0].device == one and torch.cuda.current_device() == 0
     for a, b in zip(got, fusion.fusion_maps_plain(low, scores, (90, 110))):
         assert torch.equal(a, b.to(a.dtype))
+    qkv, bias, mask = _wattn_case(12, 2, 16, 7, (14, 21), True, torch.bfloat16, one)
+    got = wa.window_attention(qkv, bias, mask, 2)
+    assert got.device == one and torch.cuda.current_device() == 0
+    _close(got, wa.window_attention_plain(qkv, bias, mask, 2), 1e-2)
 
 
 def test_int8_quantization_on_the_card_equals_the_cpu(dev):
@@ -815,7 +909,8 @@ def test_swinl_replays_equal_the_eager_forward(dev):
     """``mask2former_swinl_vps`` at its published widths (Swin-L, window 12,
     200 queries) on the batched cell's 8 frames of 360x640 in bfloat16: the
     pair of graphs replayed without a profiler and under one equals the
-    eager forward bit for bit."""
+    eager forward bit for bit, and every forward, eager or replayed,
+    counts one B3 launch per Swin block."""
     import dataclasses
 
     from openpvsg_torch.config import mask2former_swinl_vps
@@ -826,12 +921,19 @@ def test_swinl_replays_equal_the_eager_forward(dev):
     cfg = dataclasses.replace(mask2former_swinl_vps().model, object_mask_thr=0.0, iou_thr=0.1)
     seg = SegmenterInference(cfg, random_state_dict(cfg, 0), dtype=torch.bfloat16, device=dev)
     frames = _frames(8, 360, 640, 5)
+    launches = [wa.window_attention.launches]
     want = _eager(seg, frames)
+    launches.append(wa.window_attention.launches)
     seg.forward_frames(frames)
+    launches.append(wa.window_attention.launches)
     got = [seg.forward_frames(frames)]
+    launches.append(wa.window_attention.launches)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         got.append(seg.forward_frames(frames))
+    launches.append(wa.window_attention.launches)
     RECORDER.reset()
+    # one B3 launch per Swin block (2 + 2 + 18 + 2), eager and replayed
+    assert np.diff(launches).tolist() == [24] * 4
     assert len(seg.replicas[0].graphs) == 1 and want[0].shape == (8, 200, 127)
     for out in got:
         for name, a, b in zip(("cls", "masks", "query"), out, want):
